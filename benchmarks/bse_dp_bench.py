@@ -5,10 +5,9 @@ DP tolerance (configuration.hpp:53-62, which applies to Solve_pseudo —
 algorithm.inc:1834-2220) on a structured pseudo-Hermitian matrix with an
 EXACT known spectrum, and reports iterations, the TRUE residual checked
 on host against the f64 matrix, the eigenvalue error vs the exact
-spectrum, the low-precision FLOP fraction, and wall times.  On
-emulated-f64 backends the solver auto-engages the wide (Ozaki-slice)
-GEMM for the pencil RR / S-QR and the deviation-form H² refinement
-ladder keeps the filter on the f32 MXU path (round-4 machinery; the
+spectrum, the low-precision FLOP fraction, and wall times.  --mixed 1
+(default) runs the deviation-form H² refinement ladder (f32 filter);
+--mixed 0 the native f64 filter — the A/B arms of the DP ladder (the
 Hermitian twin is dp_ladder_bench.py).
 
     python benchmarks/bse_dp_bench.py --n 4096 --nev 256 --nex 128
@@ -33,6 +32,9 @@ def main():
                    help="run a second (warm) solve and report its wall")
     args = p.parse_args()
 
+    from chase_tpu.device import require_gpu, use_compile_cache
+    require_gpu()
+    use_compile_cache()
     import chase_tpu
     from chase_tpu.models import structured_pseudo_hermitian
     from chase_tpu.parallel.operator import DenseOperator

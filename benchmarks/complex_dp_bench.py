@@ -1,17 +1,15 @@
-"""On-chip complex128 (z-dtype) DP benchmark: Hermitian and BSE solves at
-tol=1e-10 through the real-pair embedding × refinement ladder × wide-f64.
+"""complex128 (z-dtype) DP benchmark: Hermitian and BSE solves at
+tol=1e-10, native complex or (--real-pair) through the real symplectic
+embedding J (f64, size 2N) — the A/B arms of complex_backend.
 
 The reference's z-dtype end-to-end at DP tolerance is its core test
 matrix (tests/chase_serial_solve.cpp:23-120 for Hermitian,
-chase_serial_solve_pseudo_bse for BSE).  On this accelerator complex
-dtypes are unimplemented, so a c128 problem runs as the real symplectic
-embedding J (f64, size 2N): mixed_precision resolves on (auto on
-emulated-f64 backends), wide-f64 engages once 2N >= wide_f64_min_n, and
-the deviation-form ladder keeps the filter FLOPs on the f32 MXU path.
-Checks the TRUE COMPLEX residual and eigenvalue error on host.
+chase_serial_solve_pseudo_bse for BSE).  Checks the TRUE COMPLEX residual
+and eigenvalue error on host.
 
     python benchmarks/complex_dp_bench.py --n 4096 --nev 256 --nex 128
     python benchmarks/complex_dp_bench.py --bse --n 4096 --nev 128 --nex 64
+    python benchmarks/complex_dp_bench.py --real-pair --n 4096
 """
 
 import argparse
@@ -39,8 +37,13 @@ def main():
     p.add_argument("--bse", action="store_true")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--repeat", action="store_true")
+    p.add_argument("--real-pair", action="store_true",
+                   help="complex_backend='real_pair' (2N real embedding)")
     args = p.parse_args()
 
+    from chase_tpu.device import require_gpu, use_compile_cache
+    require_gpu()
+    use_compile_cache()
     import chase_tpu
 
     N = args.n
@@ -55,9 +58,12 @@ def main():
           f"{time.perf_counter()-t0:.1f}s", flush=True)
 
     t0 = time.perf_counter()
-    op = chase_tpu.embed_complex_operator(H, pseudo=args.bse)
-    print(f"[embed] J size {2*N} (f64), placed: "
-          f"{time.perf_counter()-t0:.1f}s", flush=True)
+    if args.real_pair:
+        op = chase_tpu.embed_complex_operator(H, pseudo=args.bse)
+        print(f"[embed] J size {2*N} (f64), placed: "
+              f"{time.perf_counter()-t0:.1f}s", flush=True)
+    else:
+        op = H
 
     solve = chase_tpu.eigsh_pseudo if args.bse else chase_tpu.eigsh
     t0 = time.perf_counter()

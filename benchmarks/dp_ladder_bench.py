@@ -3,12 +3,10 @@
 Runs the host-driver solve on a perturbed Clement matrix in f64 at the
 reference's default DP tolerance (configuration.hpp:53-62) and reports
 iterations, the TRUE residual checked on host against the f64 matrix,
-the low-precision FLOP fraction, and wall times.  On emulated-f64
-backends the solver auto-engages the wide (Ozaki-slice) GEMM for RR/QR
-and the deviation-form refinement ladder keeps the filter on the f32
-MXU path; `operator.engage_wide` frees the device f64 buffer so the
-resident operator state is the slice stack + f32 shadow only (the
-N=16384 HBM budget on a 16 GB chip).
+the low-precision FLOP fraction, and wall times.  It runs the opt-in
+mixed-precision ladder (f32 filter with the deviation-form refinement);
+--wide adds the Ozaki-slice RR/QR GEMMs, the A/B arm against native
+f64.
 
     python benchmarks/dp_ladder_bench.py --n 16384 --nev 512 --nex 256
 """
@@ -34,15 +32,19 @@ def main():
                         "unscaled Clement at N=30000 puts 1e-10 ABSOLUTE "
                         "below the f64 representation floor eps*||H||)")
     p.add_argument("--fused", action="store_true",
-                   help="solve through eigsh_fused — the one-dispatch wide "
-                        "(int8-slice) DP serving program with zero f64 ops "
-                        "in the graph (VERDICT r4 missing #3)")
+                   help="solve through eigsh_fused (one-dispatch program)")
+    p.add_argument("--wide", action="store_true",
+                   help="wide_f64='on': Ozaki-slice RR/QR GEMMs (with "
+                        "--fused, zero f64 ops in the graph)")
     p.add_argument("--no-perturb", action="store_true",
                    help="pure Clement (exact integer spectrum; avoids the "
                         "3x N^2 f64 host-RAM peak of the perturbation at "
                         "N=30000) and check eigenvalues exactly")
     args = p.parse_args()
 
+    from chase_tpu.device import require_gpu, use_compile_cache
+    require_gpu()
+    use_compile_cache()
     import chase_tpu
     from chase_tpu.models import clement, clement_eigenvalues
     from chase_tpu.parallel.operator import DenseOperator
@@ -64,7 +66,8 @@ def main():
     print(f"[gen] {'pure' if args.no_perturb else 'perturbed'} Clement "
           f"N={N}: {time.perf_counter()-t0:.1f}s", flush=True)
 
-    cfg = chase_tpu.ChaseConfig(mixed_precision=True)
+    cfg = chase_tpu.ChaseConfig(mixed_precision=True,
+                                wide_f64="on" if args.wide else "auto")
     op = DenseOperator(H)
     solve_fn = chase_tpu.eigsh_fused if args.fused else chase_tpu.eigsh
 

@@ -18,10 +18,13 @@ def main():
     p.add_argument("--dtype", default="float32")
     p.add_argument("--reps", type=int, default=3)
     p.add_argument("--skip-householder", action="store_true",
-                   help="dense QR is O(4Nk^2) with poor MXU shape at the "
+                   help="dense QR is O(4Nk^2) and panel-bound at the "
                         "reference's N=115000/k=8000 config; skip it there")
     args = p.parse_args()
 
+    from chase_tpu.device import require_gpu, use_compile_cache
+    require_gpu()
+    use_compile_cache()
     import jax
     import jax.numpy as jnp
     from chase_tpu.ops.qr import cholqr, householder_qr, mgs_cholqr

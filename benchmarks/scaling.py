@@ -3,12 +3,10 @@
 Reference analogue: the published scaling studies (README.md:192-198) and
 the BASELINE north star (≥80% weak-scaling efficiency at ≥2 hosts).
 
-Without multi-chip hardware this measures (a) correctness + collective
-structure on a virtual CPU mesh and (b) single-chip throughput; on a real
-pod slice the same script reports weak/strong efficiency directly.
+Runs on the GPUs of one host (all of them by default) and reports weak or
+strong efficiency of the sharded filter directly.
 
-    XLA_FLAGS=--xla_force_host_platform_device_count=8 JAX_PLATFORMS=cpu \
-        python benchmarks/scaling.py --mode weak --base-n 1024
+    python benchmarks/scaling.py --mode weak --base-n 8192
 """
 
 import argparse
@@ -53,6 +51,9 @@ def main():
     p.add_argument("--dtype", default="float32")
     args = p.parse_args()
 
+    from chase_tpu.device import require_gpu, use_compile_cache
+    require_gpu()
+    use_compile_cache()
     import jax
     import chase_tpu
 

@@ -31,6 +31,9 @@ def main():
                    help="relative perturbation between sequence members")
     args = p.parse_args()
 
+    from chase_tpu.device import require_gpu, use_compile_cache
+    require_gpu()
+    use_compile_cache()
     import chase_tpu
     from chase_tpu.models import random_hermitian
 

@@ -38,6 +38,9 @@ def main():
     args = p.parse_args()
     c = CONFIGS[args.config]
 
+    from chase_tpu.device import require_gpu, use_compile_cache
+    require_gpu()
+    use_compile_cache()
     import chase_tpu
     from chase_tpu.models import clement, random_hermitian, \
         random_pseudo_hermitian

@@ -1,12 +1,13 @@
-"""chase_tpu — a TPU-native Chebyshev-accelerated subspace eigensolver.
+"""chase_tpu — a Chebyshev-accelerated subspace eigensolver in JAX.
 
-A from-scratch JAX/XLA/Pallas framework with the capabilities of the ChASE
+A from-scratch JAX/XLA framework with the capabilities of the ChASE
 library (Chebyshev Accelerated Subspace iteration Eigensolver): extremal
 eigenpairs of dense real-symmetric, complex-Hermitian and pseudo-Hermitian
 (BSE) matrices, with per-vector degree-optimized Chebyshev filtering,
 CholQR orthogonalization, Rayleigh–Ritz projection, residual-based locking
-and warm-started problem sequences — scaled over TPU meshes with
-jax.sharding/GSPMD instead of MPI/NCCL/ScaLAPACK.
+and warm-started problem sequences — on one GPU or scaled over a device
+mesh with jax.sharding/GSPMD (XLA's collectives) instead of
+MPI/NCCL/ScaLAPACK.
 """
 
 from .api import (eigsh, eigsh_fused, eigsh_pseudo,  # noqa: F401

@@ -34,6 +34,8 @@ if _plat:
     import jax
     jax.config.update('jax_platforms', _plat)
 import chase_tpu.interface as _iface
+from chase_tpu.device import use_compile_cache
+use_compile_cache()
 
 _state = {}
 
@@ -469,13 +471,12 @@ extern "C" void chase_set_upperb_scale_rate_(float* rate) {
 }
 
 // build introspection (chase_c_interface.h:234-239)
-extern "C" void chase_has_cuda_(int* flag) { *flag = 0; }
+extern "C" void chase_has_cuda_(int* flag) {
+    *flag = run("1 if _iface.has_gpu() else 0");
+}
 extern "C" void chase_has_nccl_(int* flag) { *flag = 0; }
 extern "C" void chase_has_scalapack_(int* flag) { *flag = 0; }
 extern "C" void chase_has_mpi_(int* flag) { *flag = 0; }
-extern "C" void chase_has_tpu_(int* flag) {
-    *flag = run("1 if _iface.has_gpu() else 0");
-}
 extern "C" void chase_get_version_(char* version, int* len) {
     const char* v = "chase_tpu-0.1.0";
     int n = (int)strlen(v);
@@ -487,5 +488,6 @@ extern "C" void chase_get_version_(char* version, int* len) {
     }
 }
 extern "C" void chase_print_config_() {
-    printf("chase_tpu: JAX/XLA TPU-native build; C ABI via embedded Python\n");
+    printf("chase_tpu: JAX/XLA build (CPU or GPU); C ABI via embedded "
+           "Python\n");
 }

@@ -1,7 +1,7 @@
 // Native threaded block reader/writer for ChASE-format (column-major)
 // binary matrix files.
 //
-// TPU-native counterpart of the reference's MPI-IO subarray machinery
+// Counterpart of the reference's MPI-IO subarray machinery
 // (linalg/distMatrix/distMatrix.hpp:2243-2410: MPI_File_set_view +
 // MPI_File_read_all of a 2D-distributed sub-block): each process pulls only
 // the bytes of its own shards.  Python-side numpy memmap fancy-slicing of a

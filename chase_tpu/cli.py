@@ -20,7 +20,7 @@ import numpy as np
 def build_parser():
     p = argparse.ArgumentParser(
         prog="chase_tpu",
-        description="TPU-native Chebyshev-accelerated subspace eigensolver")
+        description="Chebyshev-accelerated subspace eigensolver")
     p.add_argument("--n", type=int, required=True, help="matrix dimension N")
     p.add_argument("--nev", type=int, required=True, help="wanted eigenpairs")
     p.add_argument("--nex", type=int, default=None, help="extra directions")
@@ -63,6 +63,8 @@ def build_parser():
 def main(argv=None):
     args = build_parser().parse_args(argv)
     import chase_tpu
+    from chase_tpu.device import use_compile_cache
+    use_compile_cache()
     from chase_tpu import io as cio
     from chase_tpu.models import clement, random_hermitian, \
         random_pseudo_hermitian, hermitian_sequence

@@ -1,6 +1,6 @@
 """Solver configuration.
 
-TPU-native analogue of ``algorithm/configuration.hpp`` (ChaseConfig<T>) plus
+JAX analogue of ``algorithm/configuration.hpp`` (ChaseConfig<T>) plus
 the runtime env-var knobs scattered through the reference
 (CHASE_DISABLE_CHOLQR, CHASE_CHOLQR1_THLD, ... — see SURVEY §5 "Config").
 Defaults follow configuration.hpp:174-188 and the type-dispatched tables at
@@ -46,24 +46,19 @@ class ChaseConfig:
     max_deg: Optional[int] = None        # degree cap (36 DP / 18 SP)
     deg_extra: int = 2                   # configuration.hpp:176
     optimization: bool = True            # per-vector degree optimization ('S' mode)
-    # SP filter inside a DP solve (P10).  None (default) = AUTO: engage for
-    # 64-bit problems on backends WITHOUT an f64 matmul unit (everything but
-    # CPU) — there the "full-precision" filter is emulated-f64 (slow
-    # compiles, N-growing error, BENCH_NOTES round 3) while the deviation-
-    # form refinement ladder (refine_filter) is validated to the f64 floor,
-    # so the ladder is the safe default, like the reference's
-    # QR_DOUBLE_PRECISION default-ON (CMakeLists.txt:52).  True/False force;
-    # env CHASE_MIXED_PRECISION=0/1 overrides.  SP problems are never
-    # auto-engaged (the bf16 rung stays opt-in via bf16_filter).
+    # SP filter inside a DP solve (P10, the reference's DP->SP switch).
+    # None (default) resolves to off: every supported platform has native
+    # f64 GEMMs, so a DP solve runs its filter in f64.  True engages the
+    # ladder (f32 filter, then the deviation-form refinement once Ritz
+    # values exist); env CHASE_MIXED_PRECISION=0/1 overrides.
     mixed_precision: Optional[bool] = None
     mixed_precision_threshold: float = 1e-3  # chase_cpu.hpp:395 resid cutoff
     # bf16 storage rung for f32 problems: while the active block's residual
     # exceeds bf16_filter_threshold * upperb (i.e. relative to the spectral
     # radius estimate; the bf16 basis-quality floor sits at ~eps_bf16 =
-    # 0.8e-2 relative), the filter HEMM takes bf16 inputs with f32 MXU
-    # accumulation (~5x the f32-highest throughput on v5e; the recurrence
-    # carry stays f32).  One rung below the reference's DP->SP switch;
-    # env CHASE_BF16_FILTER=1 enables it.
+    # 0.8e-2 relative), the filter HEMM takes bf16 inputs with f32
+    # accumulation (the recurrence carry stays f32).  One rung below the
+    # reference's DP->SP switch; env CHASE_BF16_FILTER=1 enables it.
     bf16_filter: bool = False
     bf16_filter_threshold: float = 1e-2
     # Deviation-form refinement filter (the DP-tolerance ladder): once Ritz
@@ -77,12 +72,10 @@ class ChaseConfig:
     # or bf16_filter (f32 problems); env CHASE_REFINE_FILTER=0 disables.
     refine_filter: bool = True
     # Ogita-Aishima eigenvector polish passes for the in-graph projected
-    # eigensolve (ops/rr.eigh_polished).  None = precision-driven default:
-    # 2 for f64/c128 problems (removes the backend eigh's ~1e-6 vector-
-    # residual floor — required at 1e-10 tolerance), 0 for f32/c64 (same-
-    # day A/Bs measured zero iteration savings at N=8192, +3 iterations at
-    # N=30000/k=3000, and +45 ms/iter on the BSE pencil — see
-    # ResolvedConfig.polish_passes).  Env CHASE_EIGH_POLISH forces a value.
+    # eigensolve (ops/rr.eigh_polished).  None = 0: the device eigensolver
+    # is LAPACK-quality on every supported platform (see
+    # ResolvedConfig.polish_passes); the polish is for eigensolvers with an
+    # eigenvector-residual floor.  Env CHASE_EIGH_POLISH forces a value.
     eigh_polish: Optional[int] = None
 
     # --- spectral estimator ----------------------------------------------
@@ -119,7 +112,7 @@ class ChaseConfig:
     # call site, algorithm.inc:2081)
     phantom_purge: bool = False
 
-    # --- TPU-specific -------------------------------------------------------
+    # --- compilation and dispatch ----------------------------------------
     # Column-width bucket for the filter window: active widths are padded up
     # to a multiple of this so XLA sees few distinct shapes (SURVEY §7
     # risk 1).  None (default) = auto: multiples of 64 sized so a solve
@@ -128,26 +121,23 @@ class ChaseConfig:
     # Dispatch-folded segmented filter (ops/filter.filter_seg_*): window
     # slice + init step run as ONE XLA program and each (shrink + steps +
     # masked write-back) as one — 2-4 dispatches/iteration instead of ~12.
-    # False restores the round-4 multi-dispatch path; kept so the
-    # per-dispatch-overhead hypothesis (BENCH_NOTES round-4 width/N probe)
-    # stays same-day A/B-able.  Env CHASE_FOLDED_FILTER=0/1 overrides.
+    # False keeps the multi-dispatch path for A/B runs.  Env
+    # CHASE_FOLDED_FILTER=0/1 overrides.
     folded_filter: bool = True
-    # matmul precision for f32 inputs: "highest" -> f32 accumulate on MXU.
+    # matmul precision for f32 inputs: "highest" keeps full f32 arithmetic
+    # (on the H100 "high" and "default" both run TF32 — device.py).
     matmul_precision: str = "highest"
-    # Run the small dense eigensolve (RR) / cholesky on host when the device
-    # would emulate 64-bit arithmetic. "auto" (default) | "device" | "host".
-    # auto = host LAPACK only for 64-bit problems off-CPU (emulated f64
-    # makes the device eigensolver crawl); SP stays on device (measured:
-    # warm f32 device eigh at k=3000 is ~15x the single-core host LAPACK —
-    # BENCH_NOTES round-2 north-star ladder).  Safe-by-default like the
-    # reference's RR/QR_DOUBLE_PRECISION (CMakeLists.txt:52).
+    # Where the small dense eigensolve (RR) / cholesky runs: "auto"
+    # (default) | "device" | "host".  auto = device on every supported
+    # platform; "host" round-trips the k x k problem to host LAPACK in f64
+    # (split-sync, the reference's RR_DOUBLE_PRECISION analogue).
     small_dense_backend: str = "auto"
     # Shrink QR/RR/residuals to the padded active window as columns lock
     # (the reference shrinks every post-filter phase to the unconverged
     # block, algorithm.inc:1712-1718).  Window widths reuse the filter's
     # col_block buckets so XLA compiles a bounded set of programs.
     shrink_subspace: bool = True
-    # Explicit ring collective-matmul filter (P11): overlaps V-chunk ICI
+    # Explicit ring collective-matmul filter (P11): overlaps V-chunk
     # transfers with local dots instead of GSPMD's all-gather-then-dot
     # lowering ('1d' ring on (p, 1) meshes, 2D ping-pong on r×c meshes with
     # r·c | N).  None (default) = AUTO: on whenever the grid shape admits a
@@ -156,34 +146,11 @@ class ChaseConfig:
     # request (warns if no schedule fits); False opts out
     # (CHASE_RING_FILTER=0/1 overrides).
     ring_filter: Optional[bool] = None
-    # Ring HEMM implementation: "xla" (default) = shard_map + ppermute
-    # rings (GSPMD-scheduled overlap); "pallas" = the hand-scheduled RDMA
-    # kernel (ops/pallas_ring) for 1D same-dtype rings — explicit
-    # double-buffered V-chunk RDMA + H-block DMA behind the MXU dot, the
-    # analogue of the reference's dual-stream overlap
-    # (nccl/hemm.hpp:95-266).  Falls back to "xla" with a warning when the
-    # schedule/dtypes don't fit (2D meshes, mixed-precision shadows,
-    # refine recurrence).  CHASE_RING_BACKEND overrides.
-    ring_backend: str = "xla"
-    # f64 problems on accelerators without f64 matmul hardware: "auto"
-    # (default) routes the accuracy-critical N-contraction f64 HEMMs (RR
-    # projection, QR Gram) through the exact-bf16-slice GEMM (ops/wide,
-    # Ozaki scheme) once N >= wide_f64_min_n — ~1e-14 accurate and ~60x
-    # faster to XLA-compile than the emulated-f64 dot at N=8192 (measured,
-    # BENCH_NOTES round 3).  "on" forces it for every off-CPU f64 solve;
-    # "off" keeps the backend's emulated-f64 dot.
-    # Auto engages for wide_f64_min_n <= N and while the sliced operator
-    # state fits device memory: below the window the emulated dot compiles
-    # fine; above it the L bf16 slice copies + f32 shadow
-    # ((2L+4)·N²/grid_size bytes, L~11-14) no longer fit next to the
-    # multivectors.  wide_f64_max_n=None (default) derives the upper bound
-    # from the accelerator's reported per-device memory and the grid size
-    # (solver.wide_fits — a grid-sharded slice stack scales the bound by
-    # √devices, so multi-chip DP at N=30000+ can engage); an int forces an
-    # explicit cap; "on" overrides both bounds.
+    # Exact-slice GEMM for the f64 RR/QR HEMMs (ops/wide, Ozaki scheme):
+    # "auto" (default) resolves to the native f64 GEMM; "on" routes the
+    # N-contraction f64 HEMMs of real f64 solves through int8/bf16 slices;
+    # "off" is native.
     wide_f64: str = "auto"
-    wide_f64_min_n: int = 8192
-    wide_f64_max_n: Optional[int] = None
     # Static phase-window tiers inside the fused (one-dispatch) solver:
     # the while-loop body branches over up to this many right-aligned
     # window widths so filter/QR/RR shrink as columns lock (the in-graph
@@ -191,13 +158,10 @@ class ChaseConfig:
     # tiers trade compile time (every tier compiles its own phase
     # programs) for late-iteration FLOPs.  Env CHASE_FUSED_TIERS overrides.
     fused_tiers: int = 3
-    # Complex Hermitian problems on accelerators: "real_pair" solves the
-    # real symplectic embedding J = [[Hr,-Hi],[Hi,Hr]] with purely real
-    # device arithmetic (ops/realpair.py) — required on backends without
-    # complex support, and the only route to the bf16/default MXU rungs
-    # for complex (native complex matmul lowers at highest precision only).
-    # "auto" (default) = real_pair off-CPU, native complex on CPU.
-    # "native" forces complex dtypes end to end.
+    # Complex problems: "auto" (default) and "native" keep complex dtypes
+    # end to end; "real_pair" solves the real symplectic embedding
+    # J = [[Hr,-Hi],[Hi,Hr]] with purely real arithmetic (ops/realpair.py),
+    # which also opens the bf16 rung to complex problems.
     complex_backend: str = "auto"
 
     def resolve(self, dtype) -> "ResolvedConfig":
@@ -225,9 +189,7 @@ class ChaseConfig:
         if os.environ.get("CHASE_MIXED_PRECISION"):
             mixed_precision = bool(int(os.environ["CHASE_MIXED_PRECISION"]))
         if mixed_precision is None:
-            # auto: the DP ladder whenever the backend emulates f64
-            import jax as _jax
-            mixed_precision = is_dp and _jax.default_backend() != "cpu"
+            mixed_precision = False      # auto: native f64 on cpu and gpu
         refine_filter = self.refine_filter
         if os.environ.get("CHASE_REFINE_FILTER"):
             refine_filter = bool(int(os.environ["CHASE_REFINE_FILTER"]))
@@ -240,9 +202,6 @@ class ChaseConfig:
         ring_filter = self.ring_filter
         if os.environ.get("CHASE_RING_FILTER"):
             ring_filter = bool(int(os.environ["CHASE_RING_FILTER"]))
-        ring_backend = self.ring_backend
-        if os.environ.get("CHASE_RING_BACKEND"):
-            ring_backend = os.environ["CHASE_RING_BACKEND"]
         fused_tiers = _env_int("CHASE_FUSED_TIERS", self.fused_tiers)
         folded_filter = self.folded_filter
         if os.environ.get("CHASE_FOLDED_FILTER"):
@@ -259,7 +218,6 @@ class ChaseConfig:
             qr_check_ortho=qr_check_ortho,
             eigh_polish=eigh_polish,
             ring_filter=ring_filter,
-            ring_backend=ring_backend,
             fused_tiers=int(fused_tiers),
             folded_filter=folded_filter,
             is_double=is_dp,
@@ -282,9 +240,8 @@ class ResolvedConfig:
     mixed_precision: bool = False        # resolved (None = auto in the base)
     refine_filter: bool = True
     qr_check_ortho: bool = False
-    eigh_polish: Optional[int] = None    # None = precision default (DP 2 / SP 0)
+    eigh_polish: Optional[int] = None    # None = no polish (polish_passes)
     ring_filter: Optional[bool] = None   # None = auto (on for eligible grids)
-    ring_backend: str = "xla"            # "xla" | "pallas" ring HEMM impl
     fused_tiers: int = 3                 # static phase-window tiers (fused)
     folded_filter: bool = True           # dispatch-folded segment programs
     is_double: bool = True               # problem base precision (resolve())
@@ -292,17 +249,12 @@ class ResolvedConfig:
     def __getattr__(self, name):
         return getattr(self.base, name)
 
-    def polish_passes(self, pseudo: bool = False) -> int:
-        """Precision-driven eigh-polish default (same-day A/B measured,
-        BENCH_NOTES round 2): DP problems get 2 passes — the backend
-        eigh's ~1e-6-relative eigenvector floor blocks 1e-10 tolerances
-        without it.  SP problems get 0: at serving tolerances the polish
-        measured zero iteration savings at N=8192, COST 3 iterations at
-        N=30000/k=3000 (the f32 Rayleigh-quotient eigenvalue update's
-        noise grows with k), and 45 ms/iter on the BSE pencil.  The
-        ``pseudo`` flag is kept for call-site clarity; both paths follow
-        precision.  CHASE_EIGH_POLISH / eigh_polish force a value."""
-        del pseudo
+    def polish_passes(self) -> int:
+        """Eigh-polish passes; 0 unless eigh_polish / CHASE_EIGH_POLISH
+        force a value.  LAPACK (CPU) and cuSOLVER (GPU) eigensolvers already
+        return eigenvectors at working precision; on top of them the polish
+        only adds the pinned-slot noise of the projected matrix to the
+        Ritz vectors (orthogonality 1e-15 -> 1e-12 at N=3000 f64)."""
         if self.eigh_polish is not None:
             return int(self.eigh_polish)
-        return 2 if self.is_double else 0
+        return 0

@@ -28,6 +28,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
+from .ops.blocks import inverse_permutation
 from .types import real_dtype, is_double_base
 from .ops.pseudo import apply_s
 
@@ -73,13 +74,13 @@ def solve_pseudo_fused(H, V0, *, nev, nex, tol, deg0, max_deg, deg_extra=2,
       V0: (N, 2·(nev+nex)) starting block (lower rows pre-scaled by caller
           or random).
       bf16_filter: f32 problems — far-from-converged iterations run the H²
-        recurrence with bf16 matmul inputs + f32 MXU accumulation (the
+        recurrence with bf16 matmul inputs + f32 accumulation (the
         storage rung, mirrors fused.py / ops/pseudo._h2_shift).
       refine_filter: the BSE DP ladder in-graph — from iteration 1 the H²
         filter runs the deviation-form refinement recurrence in f32 seeded
         by the f64 H²-residuals r2 = (H+θ)·r (the pencil-RR residual
         VECTORS ride in the loop state), so a 1e-10 BSE serving solve
-        never pays emulated-f64 filter FLOPs
+        keeps its filter FLOPs in f32
         (ops/pseudo.chebyshev_filter_refine_h2 is the host analogue).
     Returns dict: V (N, 2k), ritzv (2k,), resid (2k,), locked, iterations.
     """
@@ -148,7 +149,7 @@ def solve_pseudo_fused(H, V0, *, nev, nex, tol, deg0, max_deg, deg_extra=2,
         perm_to = jnp.where(in_L, cols2,
                             jnp.where(in_R, cols2 + (K2 - 2 * locked),
                                       cols2 - locked))
-        inv = jnp.argsort(perm_to)
+        inv = inverse_permutation(perm_to)
         Vp = jnp.take(V, perm_to, axis=1)
         rows_low = (jnp.arange(N) >= n2)[:, None]
         flip = rows_low & (cols2 < 2 * locked)[None, :]
@@ -174,8 +175,8 @@ def solve_pseudo_fused(H, V0, *, nev, nex, tol, deg0, max_deg, deg_extra=2,
         B = jnp.matmul(Q.conj().T, apply_s(Q), precision=precision)
         B = B - jnp.diag(pad).astype(B.dtype)
         if small_dense == "host":
-            # host LAPACK f64 pencil factorization via pure_callback (real
-            # TPU runtimes; see ops/pseudo host path for the math)
+            # host LAPACK f64 pencil factorization via pure_callback (see
+            # the ops/pseudo host path for the math)
             def _pencil_cb(a, b):
                 from .ops.pseudo import host_pencil_factor
                 th, Xh, _ok = host_pencil_factor(a, b, rt)
@@ -193,11 +194,10 @@ def solve_pseudo_fused(H, V0, *, nev, nex, tol, deg0, max_deg, deg_extra=2,
                                                 lower=True, transpose_a=True,
                                                 conjugate_a=True)
             M = -(C + C.conj().T) / 2
-            # MEASURED (round 2, BENCH_NOTES): the Ogita-Aishima polish in
-            # the pencil RR costs ~45 ms/iteration on the v5e with zero
-            # iteration savings at serving tolerances (the pseudo path's
-            # accuracy ceiling is the S-metric pencil, not the eigh vector
-            # floor) — default OFF here, opt in via config.eigh_polish.
+            # The Ogita-Aishima polish buys no iterations at serving
+            # tolerances here (the pseudo path's accuracy ceiling is the
+            # S-metric pencil, not the eigh vector floor) — default OFF
+            # for SP, opt in via config.eigh_polish.
             from .ops.rr import eigh_polished
             w_eig, Z = eigh_polished(M, passes=eigh_polish,
                                      precision=precision)
@@ -414,7 +414,7 @@ def solve_pseudo_fused(H, V0, *, nev, nex, tol, deg0, max_deg, deg_extra=2,
         # where an in-place degree sort measurably stalled the solver.
         dmax = jnp.max(deg_k)
         dperm = jnp.argsort(deg_k, stable=True)
-        dperm_inv = jnp.argsort(dperm)
+        dperm_inv = inverse_permutation(dperm)
         deg_sorted = deg_k[dperm]
 
         def run_filter(h2_fn, Vh_in):
@@ -448,7 +448,7 @@ def solve_pseudo_fused(H, V0, *, nev, nex, tol, deg0, max_deg, deg_extra=2,
 
         if use_bf16_rung:
             # bf16 storage rung: both matmuls of HEMM_H2 take bf16 inputs,
-            # f32 MXU accumulation, the carry stays f32 (H-space gate on
+            # f32 accumulation, the carry stays f32 (H-space gate on
             # the spectral-radius magnitude √b_sup, like solver_pseudo)
             def h2_bf(X):
                 W = jnp.matmul(H_bf, X.astype(jnp.bfloat16),

@@ -119,7 +119,7 @@ def init_dist_local(N: int, nev: int, nex: int, m: int, n: int, H_local,
     PROCESS passes its LOCAL (m, n) block of the (dim0, dim1) block-block
     distribution, exactly like an MPI rank of the reference.
 
-    TPU realization: every caller is one ``jax.distributed`` process; the
+    JAX realization: every caller is one ``jax.distributed`` process; the
     local blocks assemble into ONE global sharded array with
     ``jax.make_array_from_single_device_arrays`` (no process ever holds
     the full matrix), and the whole SPMD solver stack runs on the global
@@ -220,7 +220,7 @@ def init_blockcyclic(N: int, nev: int, nex: int, mb: int, nb: int, H,
     (chase_c_interface.h:61-121): bind the problem with a ScaLAPACK-style
     (mb×nb) block-cyclic layout.
 
-    TPU realization: the layout is an ownership *similarity transform*
+    JAX realization: the layout is an ownership *similarity transform*
     (parallel/layouts.BlockCyclicLayout) — H's rows/columns are permuted so
     contiguous mesh sharding owns exactly the block-cyclically assigned
     indices; eigenvector rows are un-permuted in get_eigenpairs().
@@ -397,7 +397,7 @@ def finalize(flag: int = 0):
 # build introspection (chase_c_interface.h:234-239 chase_has_*)
 def has_gpu() -> bool:
     import jax
-    return any(d.platform != "cpu" for d in jax.devices())
+    return any(d.platform == "gpu" for d in jax.devices())
 
 
 def has_distribution() -> bool:

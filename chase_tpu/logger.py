@@ -2,7 +2,7 @@
 
 Analogue of the reference's ``algorithm/logger.hpp`` (ChaseLogger singleton:
 5 levels, rank filter, category filter, env-configured via CHASE_LOG_LEVEL /
-CHASE_LOG_RANK / CHASE_LOG_CATEGORIES).  On TPU "rank" maps to the JAX
+CHASE_LOG_RANK / CHASE_LOG_CATEGORIES).  Here "rank" maps to the JAX
 process index for multi-host runs.
 """
 

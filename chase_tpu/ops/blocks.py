@@ -14,7 +14,7 @@ import jax
 import jax.numpy as jnp
 
 __all__ = ["permute_cols", "slice_cols", "update_cols", "set_head_cols",
-           "scale_lower_rows"]
+           "scale_lower_rows", "inverse_permutation"]
 
 
 @jax.jit
@@ -38,6 +38,15 @@ def set_head_cols(V, Vd, mask):
     m = Vd.shape[1]
     head = jnp.where(mask[None, :], Vd.astype(V.dtype), V[:, :m])
     return V.at[:, :m].set(head)
+
+
+def inverse_permutation(perm):
+    """inv with inv[perm[i]] = i, as one int32 scatter.  Used in place of
+    ``argsort(perm)``: XLA's GPU sort simplifier turns that sort into a
+    scatter whose int64 index type fails its own verifier under x64."""
+    n = perm.shape[0]
+    return jnp.zeros(n, jnp.int32).at[perm].set(
+        jnp.arange(n, dtype=jnp.int32), unique_indices=True)
 
 
 @jax.jit

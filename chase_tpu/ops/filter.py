@@ -1,15 +1,15 @@
 """Chebyshev polynomial filter — the hot kernel.
 
-TPU-native redesign of the reference's scaled-and-shifted three-term
+JAX redesign of the reference's scaled-and-shifted three-term
 Chebyshev recurrence (algorithm/algorithm.inc:942-1009 `Algorithm::filter`
 driving `HEMM` per backend, e.g. Impl/chase_cpu/chase_cpu.hpp:449-508).
 
-Differences from the reference, driven by XLA/TPU semantics:
+Differences from the reference, driven by XLA semantics:
 
 * The diagonal shift ``H - cI`` is folded into the matmul epilogue
   (``H@V - c*V``) instead of mutating H's diagonal in place
-  (``ChaseBase::Shift``).  H stays immutable — important because on TPU H is
-  a sharded, donated-free constant that XLA keeps resident in HBM.
+  (``ChaseBase::Shift``).  H stays immutable — important because H is a
+  sharded, donated-free constant that XLA keeps resident in device memory.
 * Per-vector degree retirement (the reference shrinks the GEMM width via
   pointer walks as columns retire, algorithm.inc:974-1000) is expressed with
   a *static-width* window plus per-column degree masks: step ``t`` updates
@@ -43,9 +43,9 @@ def _hemm_shift(H, X, c, precision):
 
     When H is stored in a narrower dtype than the carry X (the bf16
     storage rung of the mixed-precision ladder, P10), the matmul takes
-    reduced-precision inputs but accumulates in X's dtype on the MXU
-    (``preferred_element_type``) — ~5× the f32-highest throughput on v5e
-    with the carry kept at full f32.
+    reduced-precision inputs but accumulates in X's dtype
+    (``preferred_element_type``) — the bf16 tensor-core rung with the
+    carry kept at full f32.
     """
     if H.dtype != X.dtype:
         HX = jnp.matmul(H, X.astype(H.dtype), precision=precision,
@@ -115,15 +115,14 @@ def chebyshev_filter(H, X, degrees, lam1, lower, upper, deg_max, *,
 # Choosing λ_j = the column's Ritz value makes (H−λ_j)v_j the RR residual
 # vector r_j, which the fused RR computes in the problem precision anyway.
 # Every intermediate of the w recurrence is then O(|p|·‖e_j‖) (e_j = the
-# current eigenvector error), so running it in f32/bf16 on the MXU introduces
+# current eigenvector error), so running it in f32/bf16 introduces
 # noise PROPORTIONAL TO THE CURRENT ERROR instead of eps_low·‖H‖: the filter
 # keeps contracting geometrically past the low-precision floor, all the way
-# to the f64 RR/QR floor (~1e-14·‖H‖).  This is the TPU answer to the
-# reference's DP-tolerance default (algorithm/configuration.hpp:53-62): the
-# reference switches the filter back to DP once resid < 1e-3
-# (Impl/chase_cpu/chase_cpu.hpp:384-447); on TPU f64 matmuls are emulated,
-# so instead the filter NEVER leaves the fast dtype — only the one H·V HEMM
-# inside RR (shared with the residuals) runs in f64.
+# to the f64 RR/QR floor (~1e-14·‖H‖).  The reference instead switches the
+# filter back to DP once resid < 1e-3 (Impl/chase_cpu/chase_cpu.hpp:384-447,
+# DP default algorithm/configuration.hpp:53-62); here, with
+# mixed_precision=True, the filter NEVER leaves the fast dtype — only the
+# one H·V HEMM inside RR (shared with the residuals) runs in f64.
 
 
 def refine_tables(ritzv_act, degrees_act, lam1, lower, upper, max_deg):
@@ -252,10 +251,8 @@ def refine_combine(V, W, p_final, degrees):
 #
 # The segmented window filter used to issue slice + carry-init + per-
 # segment (steps, masked-writeback, update) + shrink slices as SEPARATE
-# jitted programs — ~12 dispatches per iteration.  Round-4 measurement
-# (BENCH_NOTES "width/N probe") showed per-dispatch overhead, not masking
-# or kernel shape, is what separates the in-solve filter rate from the raw
-# kernel on dispatch-expensive runtimes.  These fused variants do the
+# jitted programs — ~12 dispatches per iteration, each with its own
+# dispatch overhead.  These fused variants do the
 # window slice, the recurrence segment, the degree-masked write-back and
 # the carry shrink inside ONE program each: ~2-4 dispatches per iteration,
 # same bucketed program count (widths are static).

@@ -1,12 +1,12 @@
 """Stochastic block Lanczos for spectral-bound estimation + DoS.
 
-TPU-native redesign of the reference's batched Lanczos
+JAX redesign of the reference's batched Lanczos
 (linalg/internal/cpu/lanczos.hpp:46-209, driven by
 algorithm/algorithm.inc:1067-1214) :
 
 * The ``numvec`` independent Lanczos runs are *vectorized*: one
   ``lax.scan`` carries all probe vectors as an (N, numvec) block so every
-  step is a single N×N×numvec matmul on the MXU (the reference loops BLAS-1
+  step is a single N×N×numvec matmul (the reference loops BLAS-1
   calls per vector; the CUDA backend hand-writes batched kernels in
   lanczos_kernels.cu — XLA fuses our batched dots/axpys for free).
 * Tridiagonal eigensolves (m ≤ ~25) happen on host in numpy — they are

@@ -1,7 +1,7 @@
 """Pseudo-Hermitian (BSE) kernels: S-metric ops, H² filter, K-conjugation,
 S-Lanczos and the pseudo Rayleigh–Ritz pencil solve.
 
-TPU-native redesign of the reference's BSE machinery:
+JAX redesign of the reference's BSE machinery:
 
 * ``flipLowerHalfMatrixSign`` (cpu/utils.hpp:99-120, flipSign.cu) — applying
   the metric S = diag(I_{N/2}, −I_{N/2}) — becomes a row-mask multiply that
@@ -83,7 +83,7 @@ def _h2_shift(H, X, c, precision):
     When H is stored in a narrower dtype than the carry X (the bf16 storage
     rung for f32 BSE problems, or the f32 mixed-precision shadow of a DP
     problem — P10 on the pseudo path), both matmuls take reduced-precision
-    inputs but accumulate in X's dtype on the MXU
+    inputs but accumulate in X's dtype
     (``preferred_element_type``), exactly like ops.filter._hemm_shift.  The
     intermediate H·X is rounded back to H's dtype for the second product;
     the step error is O(eps_low·‖H‖²·‖X‖) — the same RELATIVE scale vs the
@@ -278,18 +278,18 @@ def refine_h2_seg_steps(H, V, X0, Wp, Wc, Rc, deg_win, alphas, betas, inj,
 #
 # Same algebra as ops/filter.chebyshev_filter_refine, applied to G = H²: for
 # any scalar μ_j the deviation w_t = p_t(Gs)v_j − p_t(μs_j)v_j obeys the
-# three-term recurrence of p_t plus an additive injection proportional to
-# the H²-RESIDUAL r2_j = (G − μ_j)v_j.  Choosing μ_j = θ_j² (the pencil-RR
-# Ritz value squared) factors r2_j = (H + θ_j)(H − θ_j)v_j = (H + θ_j)·r_j,
-# i.e. ONE extra f64-accurate HEMM on the (small) H-residual vectors the
-# pencil RR already produces.  Every intermediate of the w recurrence is
-# then O(|p|·‖e_j‖), so it runs on the fast MXU dtypes while the solve
-# contracts to the f64 floor — the reference instead hands Solve_pseudo's
-# filter back to DP below resid 1e-3 (algorithm.inc:1834-2220 at the DP
-# tolerance of configuration.hpp:53-62), which on a TPU is the emulated-f64
-# path.  Coefficient tables come from ops.filter.refine_tables with the
-# H²-space quantities (μ = θ², λ₁ = μ₁, [lower, b_sup]): the σ-recurrence
-# is identical — only the operator application differs (_h2_shift).
+# three-term recurrence of p_t plus an additive injection proportional to the
+# H²-RESIDUAL r2_j = (G − μ_j)v_j.  Choosing μ_j = θ_j² (the pencil-RR Ritz
+# value squared) factors r2_j = (H + θ_j)(H − θ_j)v_j = (H + θ_j)·r_j, i.e. ONE
+# extra f64-accurate HEMM on the (small) H-residual vectors the pencil RR
+# already produces.  Every intermediate of the w recurrence is then
+# O(|p|·‖e_j‖), so it runs in the fast dtypes while the solve contracts to the
+# f64 floor — the reference instead hands Solve_pseudo's filter back to DP
+# below resid 1e-3 (algorithm.inc:1834-2220 at the DP tolerance of
+# configuration.hpp:53-62).  Coefficient tables come from
+# ops.filter.refine_tables with the H²-space quantities (μ = θ², λ₁ = μ₁,
+# [lower, b_sup]): the σ-recurrence is identical — only the operator
+# application differs (_h2_shift).
 
 
 @partial(jax.jit, static_argnames=("precision",))
@@ -537,9 +537,8 @@ def _prr_device(H, V, locked, *, precision="highest", polish=0,
                                         transpose_a=True, conjugate_a=True)
     M = -(C + C.conj().T) / 2                             # Hermitize −L⁻¹BL⁻ᴴ
 
-    # polish default 0: measured pure overhead on the pencil path — the
-    # S-metric pencil, not the eigh vector floor, bounds its accuracy
-    # (BENCH_NOTES round 2); opt in via config.eigh_polish
+    # polish default 0: the S-metric pencil, not the eigh vector
+    # floor, bounds its accuracy; opt in via config.eigh_polish
     from .rr import eigh_polished
     w, Z = eigh_polished(M, passes=polish, precision=precision)  # ascending
     w = w.real.astype(rt)
@@ -612,8 +611,8 @@ def rayleigh_ritz_pseudo_geev(H, Q, *, precision="highest"):
 
     Port of the v1 path (cpu/rayleighRitz.hpp:146-250, the XGEEV variant):
     builds the oblique Rayleigh quotient with the dual (S-metric) left
-    basis and solves it with a general eigensolver.  CPU-only (``eig`` has
-    no TPU lowering) and kept — per the reference's own practice — as the
+    basis and solves it with a general eigensolver on the host (numpy
+    ``eig``) and kept — per the reference's own practice — as the
     independent cross-check for the production Hermitianized pencil path
     (SURVEY §7 risk 3).
 

@@ -1,6 +1,6 @@
 """Orthonormalization: CholQR1/2, shifted CholQR2, Householder fallback.
 
-TPU-native redesign of the reference's QR stack
+JAX redesign of the reference's QR stack
 (linalg/internal/cpu/cholqr1.hpp:41-215 and the condition-number-driven
 selection in Impl/chase_cpu/chase_cpu.hpp:590-776):
 
@@ -118,12 +118,11 @@ def cholqr_hostchol(V, *, passes=2, shifted=False, precision="highest",
                     upcast=None):
     """CholQR with the k×k factorization on host, in f64.
 
-    Split-sync variant of :func:`cholqr` for accelerators whose dense
-    Cholesky/trsm are slow (both are substitution-sequential; measured QR
-    was 12% of a N=30000/nev=2250 solve on one v5e): the Gram matrix is a
-    sharded MXU matmul, the k×k Cholesky AND triangular inverse happen on
-    host LAPACK in f64 (doubling as the QR_DOUBLE_PRECISION analogue), and
-    the application ``V ← V·L⁻ᴴ`` returns to the MXU as a plain matmul —
+    Split-sync variant of :func:`cholqr` (opt-in, small_dense='host'):
+    the Gram matrix is a sharded matmul, the k×k Cholesky AND triangular
+    inverse happen on host LAPACK in f64 (doubling as the
+    QR_DOUBLE_PRECISION analogue), and the application ``V ← V·L⁻ᴴ`` is a
+    plain device matmul —
     no device triangular solve at all.  Well-conditioned by construction
     on rounds > 0 (CholQR squares toward orthonormality), and the shifted
     round-0 Gram is regularized exactly like the device path.
@@ -179,11 +178,8 @@ def cholqr_wide(V, *, passes=2, shifted=False, precision="highest",
     the k×k factorization on host f64 (ops/wide + cholqr_hostchol's
     split-sync pattern).
 
-    For f64 problems on accelerators without f64 matmul hardware: the
-    emulated-f64 Gram is both slow to compile at large N (806 s at
-    N=8192, BENCH_NOTES round 3) and the source of the eps_f32-level
-    column-norm sloppiness that froze the DP ladder.  Here the Gram is
-    ~1e-14-accurate bf16-slice MXU work, the Cholesky + triangular
+    The wide_f64='on' QR path: the Gram is ~1e-14-accurate slice GEMM
+    work, the Cholesky + triangular
     inverse run on host LAPACK, and the application returns as a plain
     (N,k)@(k,k) matmul.
     """
@@ -225,13 +221,13 @@ def cholqr_wide(V, *, passes=2, shifted=False, precision="highest",
 def mgs_cholqr(V, *, n_panels=6, precision="highest", upcast=None):
     """Panelized block-Gram-Schmidt CholQR (BCGS2 shape).
 
-    TPU-native analogue of the reference's ``modifiedGramSchmidtCholQR``
+    JAX analogue of the reference's ``modifiedGramSchmidtCholQR``
     (nccl/cholqr.hpp:1025-1190; auto-invoked at N ≥ 1e5,
     Impl/config/config.hpp:9): panel 0 gets CholQR2; every later panel is
     projected against the previous panel, CholQR1'd, re-projected against
     ALL previous columns, and CholQR1'd again.  Bounds the Gram
     accumulation error that plain CholQR suffers on very tall blocks.
-    All panel boundaries are static; projections are MXU matmuls and the
+    All panel boundaries are static; projections are plain matmuls and the
     k_p×k_p Cholesky factors replicate (the P6/P8 pattern).
     Returns (Q, ok).
     """
@@ -276,7 +272,7 @@ def householder_qr(V, *, upcast=None):
 def tsqr(V, *, grid=None, axis: str = "r", upcast=None):
     """Distributed tall-skinny Householder QR (TSQR).
 
-    TPU-native replacement for the reference's distributed Householder QR
+    JAX replacement for the reference's distributed Householder QR
     (linalg/internal/mpi/householder_qr.hpp and
     nccl/householder_qr.hpp — custom panel factorization + compact-WY
     formQ, ~7k LoC across backends).  Instead of panel-by-panel pivot
@@ -309,21 +305,21 @@ def tsqr(V, *, grid=None, axis: str = "r", upcast=None):
         q2, _ = jnp.linalg.qr(rs.reshape(p * k, k), mode="reduced")
         me = jax.lax.axis_index(axis)
         q2_me = jax.lax.dynamic_slice(q2, (me * k, jnp.int32(0)), (k, k))
-        return jnp.matmul(q1, q2_me)
+        return jnp.matmul(q1, q2_me, precision="highest")
 
     fn = shard_map(local, mesh=grid.mesh,
                    in_specs=P(axis, None), out_specs=P(axis, None))
     return fn(V).astype(in_dtype)
 
 
-# MEASURED NEGATIVE RESULT (round 4): an f32-Householder + wide-CholQR2
-# rescue in place of the emulated-f64 TSQR fallback looked like a cheap
+# An f32-Householder + wide-CholQR2 rescue in place of the f64 TSQR
+# fallback looks like a cheap
 # Householder substitute for wide mode, but breakdowns also occur NEAR
 # CONVERGENCE (not only at the ladder's structural first iteration) and
 # the f32 cast then floors near-converged columns at eps_f32 — they
 # early-lock at ~1000·tol and the solve stalls at 5e-7 (N=1024 BSE wide
-# A/B).  The emulated-f64 TSQR stays the rescue; it runs a handful of
-# times per solve.
+# A/B).  The f64 TSQR stays the rescue; it runs a handful of times per
+# solve.
 
 
 @jax.jit
@@ -376,7 +372,7 @@ def _project_against_locked(V_full, W, start, *, precision="highest"):
 @jax.jit
 def _project_against_locked_wide(V_full, W, start):
     """_project_against_locked with both matmuls on the exact-bf16 slice
-    GEMM (f64 backends whose emulated dot misbehaves at large N)."""
+    GEMM (wide_f64='on')."""
     from .wide import wide_matmul
     cols = jnp.arange(V_full.shape[1])
     L = jnp.where((cols < start)[None, :], V_full,
@@ -390,7 +386,7 @@ def orthonormalize_window(V, start, w_pad, locked, cond, rcfg, grid=None,
     """Width-bucketed QR: orthonormalize only the padded active window.
 
     The reference shrinks every post-filter phase to the unconverged block
-    (algorithm.inc:1712-1718) — on TPU we shrink to the same static bucket
+    (algorithm.inc:1712-1718) — here we shrink to the same static bucket
     widths the filter uses, so XLA compiles a handful of window programs.
     The window [start, nevex) holds the active columns plus ≤B−1 locked
     padding columns; columns [0, start) are locked and orthonormal.
@@ -466,8 +462,7 @@ def orthonormalize_window(V, start, w_pad, locked, cond, rcfg, grid=None,
                                  upcast=upcast)
             ok = bool(ok2)
         elif small_dense == "host":
-            # honor the explicit host opt-in for the cleanup pass too —
-            # same emulated-f64 Cholesky rationale as the first pass
+            # honor the explicit host opt-in for the cleanup pass too
             Q, ok2 = cholqr_hostchol(Q, passes=1, precision=precision,
                                      upcast=upcast)
             ok = bool(ok2)

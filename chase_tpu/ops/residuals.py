@@ -1,7 +1,7 @@
 """Standalone residual norms ‖H v − θ v‖₂ per column.
 
 Mirrors linalg/internal/cpu/residuals.hpp:56-83 (and the distributed
-variant's allreduced squared norms, mpi/residuals.hpp:60-110 — on TPU the
+variant's allreduced squared norms, mpi/residuals.hpp:60-110 — here the
 norm reduction over the row-sharded axis is a psum GSPMD inserts for us).
 Used for final verification and tests; the solver's per-iteration residuals
 come fused from :func:`chase_tpu.ops.rr.rayleigh_ritz_residuals`.

@@ -3,7 +3,7 @@
 The reference offers ScaLAPACK-style mb×nb block-cyclic distribution
 (linalg/distMatrix/distMatrix.hpp:2867 BlockCyclicMatrix,
 DistMultiVectorBlockCyclic1D) for load balance of trapezoidal work.  On a
-TPU mesh the HEMM work is uniform across shards, so block-cyclic brings no
+device mesh the HEMM work is uniform across shards, so block-cyclic brings no
 performance benefit — but for parity (and for interop with matrices whose
 natural ordering is the ScaLAPACK ownership order) we provide it as a
 *similarity transform*: a row/column permutation that makes contiguous

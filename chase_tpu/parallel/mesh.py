@@ -1,6 +1,6 @@
 """2D device grid and canonical shardings.
 
-TPU-native analogue of ``grid/mpiGrid2D.hpp:188`` (MpiGrid2D: 2D Cartesian
+JAX analogue of ``grid/mpiGrid2D.hpp:188`` (MpiGrid2D: 2D Cartesian
 process grid with row/column sub-communicators) — here a
 ``jax.sharding.Mesh`` with axes ``('r', 'c')``:
 
@@ -12,7 +12,7 @@ process grid with row/column sub-communicators) — here a
 Row↔column redistribution (the reference's Bcast rings,
 distMultiVector.hpp:2444-2918) is just a resharding between the two vector
 shardings — GSPMD emits the all-to-all/all-gather.  RowMajor/ColMajor grid
-majors and BLACS contexts have no TPU equivalent: mesh axis order covers
+majors and BLACS contexts have no equivalent here: mesh axis order covers
 both.
 """
 
@@ -59,13 +59,9 @@ def make_grid(devices: Optional[Sequence] = None,
               shape: Optional[tuple[int, int]] = None) -> Grid2D:
     """Build the ('r','c') grid over the given (default: all) devices.
 
-    When spanning all devices, device→mesh-coordinate assignment goes
-    through ``mesh_utils.create_device_mesh`` so the heavier-traffic mesh
-    axes ride ICI torus links (and DCN only across slices) instead of the
-    arbitrary enumeration order — the analogue of the reference mapping its
-    2D grid onto the fastest interconnect (MPI_Cart_create reorder).
-    """
-    explicit = devices is not None
+    Devices fill the grid in enumeration order.  The cards of one GPU host
+    reach each other all to all over NVLink at the same rate, so the mesh
+    follows the algorithm alone (the analogue of MPI_Dims_create)."""
     if devices is None:
         devices = jax.devices()
     n = len(devices)
@@ -74,16 +70,7 @@ def make_grid(devices: Optional[Sequence] = None,
     r, c = shape
     if r * c != n:
         raise ValueError(f"grid shape {shape} does not cover {n} devices")
-    if not explicit:
-        try:
-            from jax.experimental import mesh_utils
-            dev_array = mesh_utils.create_device_mesh((r, c),
-                                                      devices=devices)
-        except Exception:   # unusual topologies: keep enumeration order
-            dev_array = np.asarray(devices).reshape(r, c)
-    else:
-        dev_array = np.asarray(devices).reshape(r, c)
-    return Grid2D(Mesh(dev_array, ("r", "c")))
+    return Grid2D(Mesh(np.asarray(devices).reshape(r, c), ("r", "c")))
 
 
 def matrix_sharding(grid: Optional[Grid2D]):

@@ -2,21 +2,17 @@
 
 The reference overlaps the filter's GEMM with its allreduce via dual CUDA
 streams (nccl/hemm.hpp:95-266 split-GEMM path) and fuses the multivector
-redistribution into HEMM (mpi/hemm.hpp:282-494).  The TPU-native analogue
-is a *collective matmul* (the scaling-book pattern): with H row-sharded
-P('x', None) and V row-sharded P('x'), each device needs all of V — instead
-of an up-front all-gather, V circulates around the ring in p chunks and
-each device multiplies its local H stripe against the chunk it currently
-holds while the next chunk is in flight on ICI.
+redistribution into HEMM (mpi/hemm.hpp:282-494).  The JAX analogue is a
+*collective matmul*: with H row-sharded P('x', None) and V row-sharded
+P('x'), each device needs all of V — instead of an up-front all-gather, V
+circulates around the ring in p chunks and each device multiplies its
+local H stripe against the chunk it currently holds while the next chunk
+is in flight (NCCL over NVLink on GPUs).
 
-Two implementations:
-
-* `ring_hemm` — shard_map + `lax.ppermute`, software-pipelined (the
-  permute for step s+1 is issued before the dot of step s so XLA's
-  latency-hiding scheduler can overlap them).  Runs everywhere (tested on
-  the virtual CPU mesh).
-* `pallas_ring_hemm` (ops/pallas_ring.py) — Pallas kernel with explicit
-  inter-chip RDMA double-buffering for real TPU meshes.
+`ring_hemm` is shard_map + `lax.ppermute`, software-pipelined (the permute
+for step s+1 is issued before the dot of step s so XLA's latency-hiding
+scheduler can overlap them).  Runs everywhere (tested on the virtual CPU
+mesh).
 
 Against GSPMD's default lowering (all-gather V, then one big dot) the ring
 trades one large exposed collective for p overlapped small ones.
@@ -32,7 +28,6 @@ from jax.sharding import PartitionSpec as P
 from jax import shard_map
 
 __all__ = ["ring_hemm", "chebyshev_filter_ring", "chebyshev_filter_ring2d",
-           "chebyshev_filter_ring_pallas",
            "chebyshev_filter_refine_ring", "chebyshev_filter_refine_ring2d",
            "chebyshev_filter_refine_h2_ring",
            "chebyshev_filter_refine_h2_ring2d"]
@@ -174,7 +169,7 @@ def chebyshev_filter_ring2d(grid, H, X, degrees, lam1, lower, upper, deg_max,
                             *, precision="highest"):
     """Chebyshev filter as a 2D ping-pong collective matmul (P4 + P11).
 
-    TPU realization of the reference's transpose-free bAc/cAb HEMM
+    JAX realization of the reference's transpose-free bAc/cAb HEMM
     alternation (Impl/pchase_cpu/pchase_cpu.hpp:407; nccl/hemm.hpp:95-266
     dual-stream overlap): with H in P('r','c') tiles and V fully row-sharded
     in N/(r·c) chunks, the recurrence alternates between two parities
@@ -327,79 +322,6 @@ def chebyshev_filter_ring(grid, H, X, degrees, lam1, lower, upper, deg_max,
     fn = shard_map(local, mesh=mesh,
                    in_specs=(P(axis, None), P(axis, None), P()),
                    out_specs=P(axis, None))
-    return fn(H, X, degrees)
-
-
-@partial(jax.jit,
-         static_argnames=("grid", "axis", "precision", "interpret"))
-def chebyshev_filter_ring_pallas(grid, H, X, degrees, lam1, lower, upper,
-                                 deg_max, *, axis: str = "r",
-                                 precision="highest", interpret=None):
-    """Chebyshev filter whose per-step HEMM is the hand-scheduled Pallas
-    RDMA ring kernel (ops/pallas_ring): V-chunk RDMA and H-block DMA
-    double-buffer behind the MXU dot — the explicit analogue of the
-    reference's dual-stream GEMM+bcast overlap (nccl/hemm.hpp:95-266).
-
-    Semantics identical to :func:`chebyshev_filter_ring` for a SAME-dtype
-    H/X pair on an effectively-1D mesh with p | N.  `interpret=None`
-    auto-selects the Pallas interpreter off-TPU (how the CPU-mesh suite
-    validates the kernel; on real TPU meshes it compiles to RDMA).
-    ``precision`` is accepted for signature parity; the kernel always
-    accumulates the bf16/f32 dot in f32 (MXU native)."""
-    from ..ops.pallas_ring import make_hemm_local
-    from ..types import real_dtype as _rdt
-
-    if H.dtype != X.dtype:
-        raise TypeError(f"pallas ring filter needs matching dtypes, got "
-                        f"H={H.dtype} X={X.dtype}")
-    p = grid.mesh.shape[axis]
-    for name, size in grid.mesh.shape.items():
-        if name != axis and size != 1:
-            raise ValueError(f"pallas ring filter needs a 1D mesh along "
-                             f"'{axis}'; axis '{name}' has size {size}")
-    N, k = H.shape[0], X.shape[1]
-    if N % p:
-        raise ValueError(f"N={N} not divisible by ring size {p}")
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
-    # run over the grid's own mesh (inputs are sharded on it — a separate
-    # flattened mesh trips Shardy's shard_map export).  The other axes all
-    # have size 1, so the LOGICAL device id the kernel's RDMA uses equals
-    # the `axis` coordinate.
-    mesh = grid.mesh
-    rt = _rdt(X.dtype)
-
-    lam1 = jnp.asarray(lam1, rt)
-    lower = jnp.asarray(lower, rt)
-    upper = jnp.asarray(upper, rt)
-    c = (upper + lower) / 2
-    e = (upper - lower) / 2
-    sigma1 = e / (lam1 - c)
-    deg_max = jnp.asarray(deg_max, jnp.int32)
-    hemm = make_hemm_local(p, axis, N // p, N // p, k, H.dtype, X.dtype,
-                           interpret=interpret)
-
-    def local(h, x, degs):
-        def hemm_shift(v):
-            return hemm(h, v) - c * v
-
-        Y = (sigma1 / e) * hemm_shift(x)
-        Y = jnp.where(degs[None, :] >= 1, Y, x)
-
-        def body(t, carry):
-            Xp, Yc, sigma = carry
-            sigma_new = 1.0 / (2.0 / sigma1 - sigma)
-            Z = (2.0 * sigma_new / e) * hemm_shift(Yc) \
-                - (sigma * sigma_new) * Xp
-            Z = jnp.where(degs[None, :] >= t, Z, Yc)
-            return (Yc, Z, sigma_new)
-
-        _, Y, _ = jax.lax.fori_loop(2, deg_max + 1, body, (x, Y, sigma1))
-        return jnp.where(degs[None, :] >= 1, Y, x)
-
-    fn = shard_map(local, mesh=mesh,
-                   in_specs=(P(axis, None), P(axis, None), P()),
-                   out_specs=P(axis, None), check_vma=False)
     return fn(H, X, degrees)
 
 

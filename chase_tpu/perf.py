@@ -1,6 +1,6 @@
 """Phase timers + analytic FLOP model.
 
-TPU-native analogue of the reference's ``algorithm/performance.hpp``
+JAX analogue of the reference's ``algorithm/performance.hpp``
 (ChasePerfData: 8 timed phases, analytic FLOP counters at
 performance.hpp:135-293, table printer at 352-451) and of the
 PerformanceDecoratorChase wrapper.  Timing here is wall-clock around
@@ -35,8 +35,11 @@ class PerfData:
     # over segments, H² steps counted twice): the static-shape windows run
     # retired/padded columns until their bucket completes, so executed ≥
     # useful (filtered_vecs) — the ratio is the structural masking waste
-    # the in-solve effective rate divides by (VERDICT round 3 missing #3)
+    # the in-solve effective rate divides by
     filtered_vecs_executed: int = 0
+    # filtered_vecs by the hardware rung each filter call ran in
+    # (device.precision_rung of its operator dtype and precision=)
+    filtered_vecs_by_rung: Dict[str, int] = field(default_factory=dict)
     matrix_type: int = 0       # 0 = (real)symmetric/Hermitian, 1 = pseudo-Hermitian
 
     def add_time(self, phase: str, seconds: float):
@@ -46,8 +49,11 @@ class PerfData:
         self.iter_blocksizes.append(int(block))
         self.iter_count += 1
 
-    def add_filtered_vecs(self, n: int, low: bool = False, executed=None):
+    def add_filtered_vecs(self, n: int, *, rung: str, low: bool = False,
+                          executed=None):
         self.filtered_vecs += int(n)
+        self.filtered_vecs_by_rung[rung] = \
+            self.filtered_vecs_by_rung.get(rung, 0) + int(n)
         if low:
             self.filtered_vecs_low += int(n)
         self.filtered_vecs_executed += int(n if executed is None
@@ -139,7 +145,9 @@ class PerfData:
             eff = gflops_filter / t["Filter"]
             lines.append(f" | GFLOPS(filter) = {eff:.4e}")
             mfu = self.filter_mfu(N, dtype)
-            if mfu is not None:
+            if isinstance(mfu, str):
+                lines.append(f" | Filter fraction-of-peak: {mfu}")
+            elif mfu is not None:
                 frac, rung, peak_g = mfu
                 lines.append(
                     f" | Filter fraction-of-peak = {100 * frac:.1f}% of the "
@@ -154,82 +162,24 @@ class PerfData:
 
     def filter_mfu(self, N: int, dtype):
         """(fraction, rung_name, peak_gflops) of the filter phase against
-        the accelerator's matmul peak for the rung MOST of the filter ran
-        in — the reference prints GFLOPS (performance.hpp:352-451); on TPU
-        the actionable number is the fraction of the MXU roofline, so
-        effective-rate regressions self-surface in every perf table.
-        None when the device peak is unknown (CPU) or no peak applies
-        (emulated f64)."""
+        the published peak of the rung MOST of the filter ran in, as each
+        filter call recorded it (the reference prints GFLOPS,
+        performance.hpp:352-451; the fraction makes effective-rate
+        regressions visible in every perf table).  None when no filter
+        ran; the string "peak not known for <kind>" when the device kind
+        has no entry in device.PEAKS."""
+        from . import device
         t = self.timings.get("Filter", 0.0)
-        if t <= 0 or self.filtered_vecs == 0:
+        if t <= 0 or not self.filtered_vecs_by_rung:
             return None
-        low_frac = self.filtered_vecs_low / self.filtered_vecs
-        rung = filter_rung(dtype, low=low_frac >= 0.5)
-        peak = device_matmul_peak(rung)
+        rung = max(self.filtered_vecs_by_rung,
+                   key=self.filtered_vecs_by_rung.get)
+        kind = device.identity()["kind"]
+        peak = device.peak(rung, kind)
         if peak is None:
-            return None
+            return f"peak not known for {kind}"
         eff = self.get_filter_flops(N, dtype) / t      # GFLOP/s
         return eff / (peak / 1e9), rung, peak / 1e9
-
-
-# -- device peak model (the roofline the MFU columns are measured against) --
-#
-# bf16 MXU peaks per chip from the public TPU specs; the f32 rungs are the
-# bf16 peak divided by the pass count of the precision mode (highest =
-# bf16x6, high = bf16x3 — measured on the v5e at 29/63/174 TF/s vs the
-# 197 TF/s spec, BENCH_r03).  Emulated f64 has no hardware peak (None);
-# wide-f64's model peak is bf16/npairs (ops/wide pair-product count).
-
-_BF16_PEAK_BY_KIND = (
-    ("v5 lite", 197e12), ("v5litepod", 197e12), ("v5e", 197e12),
-    ("v6 lite", 918e12), ("v6e", 918e12),
-    ("v5p", 459e12), ("v5", 459e12),
-    ("v4", 275e12), ("v3", 123e12), ("v2", 45e12),
-)
-
-_RUNG_DIVISOR = {"bf16": 1.0, "f32-highest": 6.0, "f32-high": 3.0}
-
-
-def device_bf16_peak():
-    """Per-chip bf16 MXU peak (FLOP/s) of the current default device, or
-    None off-TPU / for unknown kinds."""
-    import jax
-    try:
-        kind = jax.devices()[0].device_kind.lower()
-    except Exception:
-        return None
-    for key, peak in _BF16_PEAK_BY_KIND:
-        if key in kind:
-            return peak
-    return None
-
-
-def device_matmul_peak(rung):
-    """Peak FLOP/s for a named precision rung ('bf16' | 'f32-highest' |
-    'f32-high' | 'wide-f64:<npairs>'), or None when no hardware peak
-    applies (emulated f64, unknown device)."""
-    if rung is None:
-        return None
-    base = device_bf16_peak()
-    if base is None:
-        return None
-    if rung.startswith("wide-f64:"):
-        return base / float(rung.split(":", 1)[1])
-    div = _RUNG_DIVISOR.get(rung)
-    return None if div is None else base / div
-
-
-def filter_rung(dtype, low: bool):
-    """Which MXU rung the filter HEMM ran in: f32 problems run 'f32-highest'
-    (bf16x6) full precision and 'bf16' on the low rung; f64 problems run
-    'f32-highest' on the low rung (the shadow/ladder) and have NO hardware
-    rung at full precision (emulated f64 → None)."""
-    from .types import real_dtype as _rdt
-    import numpy as _np
-    rdt = _rdt(dtype)
-    if rdt == _np.dtype(_np.float32):
-        return "bf16" if low else "f32-highest"
-    return "f32-highest" if low else None
 
 
 class profiler_trace:

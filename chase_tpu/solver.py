@@ -1,6 +1,6 @@
 """Chebyshev-accelerated subspace iteration driver (Hermitian path).
 
-TPU-native redesign of ``algorithm/algorithm.inc:1376-1788``
+JAX redesign of ``algorithm/algorithm.inc:1376-1788``
 (Algorithm<T>::solve): degrees → filter → QR → RR → residuals → locking
 until ``unconverged ≤ nex``.  The control flow stays on host exactly like
 the reference's replicated scalar driver (SURVEY §3.1: "the driver itself
@@ -31,6 +31,7 @@ import jax.numpy as jnp
 import numpy as np
 
 from .config import ChaseConfig
+from .device import precision_rung
 from .logger import get_logger
 from .perf import PerfData
 from .types import is_complex_dtype, is_double_base
@@ -51,90 +52,27 @@ from .ops.blocks import (
 )
 
 
-def resolve_small_dense(rcfg_backend: str, is_sp: bool):
-    """Materialize the small_dense 'auto' policy: (eigh_backend, qr_backend).
+def resolve_small_dense(backend: str):
+    """Materialize the small_dense policy: (eigh_backend, qr_backend).
 
-    auto → host LAPACK for the projected eigensolve ONLY for 64-bit
-    problems off-CPU (the accelerator emulates f64 and the dense
-    eigensolver crawls); SP stays on device (warm f32 device eigh measured
-    ~15x the single-core host LAPACK at k=3000).  QR stays on device under
-    auto either way: warm device CholQR is fast (0.9 s/iter at k=3000)
-    and host factorization pays two k×k transfers per pass.
-    """
-    if rcfg_backend != "auto":
-        return rcfg_backend, rcfg_backend
-    off_cpu = jax.default_backend() != "cpu"
-    return ("host" if (off_cpu and not is_sp) else "device"), "device"
-
-
-def _device_memory_bytes() -> float:
-    """Per-device accelerator memory (bytes_limit when the runtime reports
-    it; 16 GB — the v5e HBM — otherwise)."""
-    try:
-        stats = jax.devices()[0].memory_stats()
-        if stats and stats.get("bytes_limit"):
-            return float(stats["bytes_limit"])
-    except Exception:
-        pass
-    return 16e9
-
-
-def wide_fits(N: int, grid=None, max_n=None) -> bool:
-    """Memory-derived wide-f64 upper bound: the resident sliced operator
-    state is L bf16 slices + the f32 shadow ≈ (2L+4)·N²/G bytes per device
-    (G = grid devices; the f64 buffer itself is dropped — engage_wide).
-    Eligible while that stays under half the per-device memory, leaving
-    the other half for multivectors, the RR/QR temporaries and the
-    programs — consistent with the measured single-chip envelope on a
-    16 GB v5e (N=16384 ran cleanly at ≈7 GB of sliced state with the
-    multivectors well under 1 GB, BENCH_NOTES round 3).  ``max_n``:
-    explicit user cap (config.wide_f64_max_n) that replaces the derived
-    bound.
-
-    The reference's DP path has no such cliff (vendor f64 BLAS at any N,
-    Impl/chase_cpu/chase_cpu.hpp:449-508); here the grid scaling removes
-    it — N=30000 f64 fits a 4-chip grid's sliced state.
-    """
-    if max_n is not None:
-        return N <= int(max_n)
-    from .ops.wide import wide_params, wide_params_i8, wide_scheme_auto
-    scheme = wide_scheme_auto(N)
-    G = 1 if grid is None else grid.nprocs
-    try:
-        if scheme == "i8":
-            # int8 slices are 1 byte: L + 4 bytes/element resident.  The
-            # transient working set is also int8 (right-operand stack), so
-            # a larger fraction of the device is safe to claim — the
-            # N=30000 DP north star (7.2 GB slices + 3.6 GB shadow +
-            # ~3 GB multivectors) is the sizing case on a 16 GB v5e.
-            _, L, _ = wide_params_i8(N)
-            need = (L + 4) * float(N) * N / G
-            return need <= 0.72 * _device_memory_bytes()
-        _, L, _ = wide_params(N)
-    except ValueError:        # contraction too long for exact slicing
-        return False
-    need = (2 * L + 4) * float(N) * N / G
-    return need <= 0.5 * _device_memory_bytes()
+    'auto' keeps both on the device (cuSOLVER on a GPU, LAPACK on the
+    CPU); an explicit 'host' or 'device' applies to both phases."""
+    backend = "device" if backend == "auto" else backend
+    return backend, backend
 
 
 def resolve_wide(rcfg, op, is_sp: bool, small_dense: str, qr_backend: str):
-    """Shared wide-f64 GEMM policy (exact-bf16-slice RR/QR HEMMs, ops/wide)
+    """Shared wide-f64 GEMM policy (exact-slice RR/QR HEMMs, ops/wide)
     for solve() and warmup.warmup() — one definition so the warmed programs
     always match the solve's.  Returns (use_wide, small_dense, qr_backend).
 
-    Only real-f64 operators are eligible: the wide kernels have no
-    complex/f32 variants, so wide_f64='on' on a non-f64 solve is ignored
-    (with a log line) rather than crashing mid-solve in engage_wide.
-    'auto' additionally requires an off-CPU backend, N >= wide_f64_min_n,
-    and the sliced operator state fitting device memory (wide_fits).
+    Engages only on ``wide_f64='on'`` ('auto' resolves to the native f64
+    GEMM), and only for real-f64 operators: the wide kernels have no
+    complex/f32 variants, so 'on' for another dtype is ignored with a log
+    line rather than crashing mid-solve in engage_wide.
     """
     eligible = not is_sp and not is_complex_dtype(op.dtype)
-    use_wide = eligible and (
-        rcfg.wide_f64 == "on"
-        or (rcfg.wide_f64 == "auto"
-            and jax.default_backend() != "cpu"
-            and rcfg.wide_f64_min_n <= op.N
-            and wide_fits(op.N, op.grid, rcfg.wide_f64_max_n)))
+    use_wide = eligible and rcfg.wide_f64 == "on"
     if rcfg.wide_f64 == "on" and not eligible:
         get_logger().info(
             f"wide_f64='on' ignored: operator dtype {np.dtype(op.dtype)} "
@@ -231,9 +169,7 @@ def _filter_windowed(H_f, V, degrees_act, locked, nevex, B, lam, lo, up,
 
     # Dispatch-folded segments (ops/filter.filter_seg_*): slice + init is
     # ONE program, each (shrink + steps + masked write-back) is ONE —
-    # 2-4 dispatches per iteration instead of ~12 (per-dispatch overhead,
-    # not masking or kernel shape, was the measured in-solve filter gap —
-    # BENCH_NOTES round 4 "width/N probe")
+    # 2-4 dispatches per iteration instead of ~12
     X0, Xp, Yc, sigma = filt.filter_seg_init(
         H_f, V, jnp.int32(start), jnp.asarray(deg_win), c, e, sigma1,
         w_pad=w_pad, precision=precision)
@@ -271,11 +207,11 @@ def _filter_windowed(H_f, V, degrees_act, locked, nevex, B, lam, lo, up,
 
 def _filter_windowed_unfolded(H_f, V, degrees_act, locked, nevex, B, lam,
                               lo, up, rdt, precision):
-    """Round-4 multi-dispatch variant of :func:`_filter_windowed` (explicit
+    """Multi-dispatch variant of :func:`_filter_windowed` (explicit
     slice / init / steps / write-back programs, ~12 dispatches/iteration).
-    Kept behind ``config.folded_filter=False`` so the per-dispatch-overhead
-    measurement (BENCH_NOTES round-4 width/N probe) stays A/B-able same-day
-    against the folded default.  Numerically identical recurrence."""
+    Kept behind ``config.folded_filter=False`` so the per-dispatch overhead
+    stays A/B-able against the folded default.  Numerically identical
+    recurrence."""
     w_pad, start = _window_pad(nevex, locked, B)
     offset = locked - start
     deg_win = np.zeros(w_pad, np.int32)
@@ -339,8 +275,8 @@ def _filter_refine_windowed(H_f, V, R, ritzv_act, degrees_act, locked, nevex,
     precision (see ops/filter.chebyshev_filter_refine).
 
     With ``ring_mode`` ('1d'/'2d') the recurrence's HEMMs run as the
-    explicit ring collective matmul (P10 × P11 composed — VERDICT round 2
-    weak #2: grids keep the overlap schedule on the DP production path).
+    explicit ring collective matmul (P10 × P11 composed: grids keep the
+    overlap schedule on the DP ladder).
     """
     w_pad, start = _window_pad(nevex, locked, B)
     offset = locked - start
@@ -529,32 +465,24 @@ def solve(op: DenseOperator, nev: int, nex: int,
     is_sp = not is_double_base(op.dtype)
     tol = rcfg.tol
     timing = perf is not None
-    # small projected eigh: on accelerators, round-trip the k x k problem
-    # to host LAPACK (split-sync; redundant heevd analogue, P8) ONLY for
-    # 64-bit problems (emulated f64 makes the device eigensolver crawl).
-    # SP stays on device: round 2 measured the warm f32 device eigh at
-    # k=3000 at ~0.36 s/iter vs ~5.4 s/iter for single-core host LAPACK —
-    # round 1's "host eigh wins at large nev" conclusion came from
-    # cold/compile-laden runs (BENCH_NOTES round-2 north-star ladder:
-    # 31.0 s with host RR vs 7.4 s with device RR, same day)
-    small_dense, qr_backend = resolve_small_dense(
-        rcfg.small_dense_backend, is_sp)
-    # exact-bf16-slice GEMM for the f64 RR/QR HEMMs (ops/wide): accuracy
-    # insurance + fast compiles on emulated-f64 backends at large N
+    # small projected eigh: on the device unless small_dense_backend='host'
+    # asks for the split-sync host LAPACK eigh (redundant heevd analogue, P8)
+    small_dense, qr_backend = resolve_small_dense(rcfg.small_dense_backend)
+    # exact-slice GEMM for the f64 RR/QR HEMMs (ops/wide), opt-in
     use_wide, small_dense, qr_backend = resolve_wide(
         rcfg, op, is_sp, small_dense, qr_backend)
     if use_wide:
         log.info(f"wide-f64 GEMM engaged for RR/QR (N={N}); disable with "
                  f"wide_f64='off'", "linalg")
-        # Slice NOW, while HBM holds nothing but H: one donating program
+        # Slice NOW, while device memory holds nothing but H: one donating
+        # program
         # builds the bf16 slices + the f32 shadow, and — when the refine
         # ladder keeps the filter off f64 H for the whole solve — frees
         # the 8-byte buffer (operator.engage_wide)
         op.engage_wide(drop=rcfg.refine_filter and rcfg.mixed_precision)
         # Serialize the prologue on async runtimes: letting the slice
         # upload, shadow rebuild, sym-check and init-QR programs pile up
-        # in flight overlaps their HBM transients and exhausts the device
-        # at N=30000 (a per-stage-synced run passes — BENCH_NOTES r5).
+        # in flight overlaps their transients in device memory.
         jax.block_until_ready(op.H_wide[0])
 
     def toc(phase, t0, *arrays):
@@ -570,8 +498,7 @@ def solve(op: DenseOperator, nev: int, nex: int,
     if rcfg.sym_check:
         from .ops.checks import check_hermitian
         # wide mode: probe the f32 shadow — a hermiticity CHECK needs only
-        # f32 fidelity, and the emulated-f64 matvec does not compile at
-        # N>8192 on some backends (BENCH_NOTES round 3)
+        # f32 fidelity, and the f64 buffer may have been dropped
         H_probe = op.H_low if use_wide else op.H
         if not check_hermitian(H_probe, precision=precision):
             log.warn("input matrix failed the randomized hermiticity probe "
@@ -595,7 +522,7 @@ def solve(op: DenseOperator, nev: int, nex: int,
             # renormalize internally, and every later phase
             # re-orthonormalizes at full precision.  f32 CholQR here skips
             # the wide GEMM's O(GB) slicing transients at full nev+nex
-            # width — the N=30000 DP init-QR OOM (BENCH_NOTES r5).
+            # width.
             V.block_until_ready()      # serialize vs the engage uploads
             Q32, ok32 = qrops.cholqr(V.astype(jnp.float32), passes=2,
                                      precision=precision)
@@ -622,8 +549,8 @@ def solve(op: DenseOperator, nev: int, nex: int,
     numvec = min(rcfg.num_lanczos, nevex)
     if not approx:
         # wide mode: spectral-bound estimation runs on the f32 shadow
-        # (bounds need ~1e-7 relative fidelity; the emulated-f64 matvec
-        # does not compile at N>8192 on some backends)
+        # (bounds need ~1e-7 relative fidelity; the f64 buffer may have
+        # been dropped)
         H_lz = op.H_low if use_wide else op.H
         if V0 is not None:
             # user-provided basis: probe with FRESH random vectors — a
@@ -699,8 +626,7 @@ def solve(op: DenseOperator, nev: int, nex: int,
         ritzv = np.asarray(ritzv0, np.float64).copy()
     # Release the Lanczos locals: on memory-tight transient-shadow wide
     # solves the H_lz reference alone pins the 4·N² f32 shadow through
-    # every later QR/RR (measured OOM at the N=30000 DP north star —
-    # BENCH_NOTES round 5); basis is another m·numvec·N block.
+    # every later QR/RR; basis is another m·numvec·N block.
     H_lz = basis = probes = probe = Vd = None
     op.drop_shadow()
 
@@ -741,19 +667,6 @@ def solve(op: DenseOperator, nev: int, nex: int,
         log.info(f"ring filter auto-enabled ({ring_mode_cfg} schedule, grid "
                  f"{op.grid.shape}); opt out with ring_filter=False",
                  "linalg")
-    # Pallas RDMA ring eligibility, decided ONCE: 1D rings with an
-    # f32/bf16 carry only (the kernel accumulates in f32 —
-    # ops/pallas_ring).  Per-iteration dtype mismatches (mixed-precision
-    # H shadows vs the V carry) fall back to the XLA ring silently.
-    pallas_eligible = (rcfg.ring_backend == "pallas"
-                       and ring_mode_cfg == "1d"
-                       and op.real_dtype == np.float32)
-    if rcfg.ring_backend == "pallas" and not pallas_eligible:
-        log.warn(f"ring_backend='pallas' needs a 1D ring schedule and an "
-                 f"f32/bf16 problem (mode={ring_mode_cfg}, "
-                 f"dtype={np.dtype(op.dtype)}) — using the XLA ring",
-                 "linalg")
-
     resid_file = None
     if rcfg.save_residuals:
         # per-iteration residual history CSV (CHASE_SAVE_RESIDUALS,
@@ -793,9 +706,8 @@ def solve(op: DenseOperator, nev: int, nex: int,
         B = _col_block(rcfg.col_block, nevex)
         # Mixed-precision ladder (P10): while the active block is far from
         # converged, run the filter in reduced precision.  64-bit problems
-        # drop to f32/c64 (the reference's DP→SP switch); 32-bit problems on
-        # the MXU drop from 'highest' (f32, bf16x6 passes) to 'high'
-        # (bf16x3) — measured 63 vs 30 TFLOP/s on v5e.
+        # drop to f32/c64 (the reference's DP→SP switch); 32-bit problems
+        # drop from 'highest' (full f32) to 'high' (TF32 on the H100).
         min_resid = (float(np.min(resid[locked:nev])) if locked < nev
                      else 0.0)
         use_low = (rcfg.mixed_precision and locked < nev
@@ -854,17 +766,12 @@ def solve(op: DenseOperator, nev: int, nex: int,
             # retirement inside the window.  Mixed-precision H shadows are
             # supported (the carry follows filter_carry_dtype).
             from .parallel.ring import (chebyshev_filter_ring,
-                                        chebyshev_filter_ring2d,
-                                        chebyshev_filter_ring_pallas)
+                                        chebyshev_filter_ring2d)
             w_pad_f, start_f = _window_pad(nevex, locked, B)
             deg_win = np.zeros(w_pad_f, np.int32)
             deg_win[locked - start_f:] = degrees[act]
             ring_fn = (chebyshev_filter_ring if ring_mode == "1d"
                        else chebyshev_filter_ring2d)
-            if pallas_eligible and H_f.dtype == V.dtype:
-                # hand-scheduled RDMA kernel: same-dtype steps only
-                # (mixed-precision shadow iterations use the XLA ring)
-                ring_fn = chebyshev_filter_ring_pallas
             Xw = _slice_cols(V, jnp.int32(start_f), w_pad_f)
             Yw = ring_fn(
                 op.grid, H_f, Xw, jnp.asarray(deg_win), lam_filter,
@@ -879,13 +786,14 @@ def solve(op: DenseOperator, nev: int, nex: int,
                 upperb, op.real_dtype, f_precision)
         if perf is not None:
             perf.add_filtered_vecs(int(np.sum(degrees[act])),
+                                   rung=precision_rung(H_f.dtype, f_precision),
                                    low=use_refine or use_bf16 or use_low,
                                    executed=f_executed)
             perf.add_iter_blocksize(unconverged)
         t0 = toc("Filter", t0, V)
         # transient-shadow mode (large-N wide): free the f32 shadow AND the
         # local H_f reference (it pins the 2·N² bf16 rebuild otherwise) so
-        # the wide QR/RR slicing transients have HBM headroom; next
+        # the wide QR/RR slicing transients have device-memory headroom; next
         # iteration's filter rebuilds from the slice stack
         H_f = None
         op.drop_shadow()

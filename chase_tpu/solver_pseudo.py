@@ -1,6 +1,6 @@
 """Pseudo-Hermitian (BSE) solver driver.
 
-TPU-native redesign of ``Algorithm<T>::solve_pseudo``
+JAX redesign of ``Algorithm<T>::solve_pseudo``
 (algorithm/algorithm.inc:1834-2220): subspace of 2·(nev+nex) columns laid
 out [locked_L | positive candidates u | K-mirrors u | locked_R], Chebyshev
 filtering on H², S-orthogonalizing QR, Hermitianized-pencil Rayleigh–Ritz
@@ -22,6 +22,7 @@ import jax.numpy as jnp
 import numpy as np
 
 from .config import ChaseConfig
+from .device import precision_rung
 from .logger import get_logger
 from .perf import PerfData
 from .types import is_complex_dtype, is_double_base
@@ -168,8 +169,8 @@ def _iter0_degree_cap(lambda_1, lower, b_sup, deg0,
     and the damped interval [``lower``, ``b_sup``] is ~rho₁^deg.  Past
     ~``dyn_range`` the damped directions sink below the reduced-precision
     noise floor, the block's columns become numerically dependent and the
-    S-QR Gram collapses (eig_min ~1e-19·‖G‖ measured at N=8192 — BENCH_NOTES
-    round 4), forcing an emulated-f64 TSQR rescue EVERY solve.  Capping the
+    S-QR Gram collapses (eig_min ~1e-19·‖G‖ at N=8192), forcing an f64
+    TSQR rescue EVERY solve.  Capping the
     degree keeps the filtered basis inside shifted-CholQR range — the
     reference's Householder fallback is exceptional, not structural
     (chase_cpu.hpp:725-751) — and the discarded compression was below the
@@ -323,10 +324,9 @@ def solve_pseudo(op: DenseOperator, nev: int, nex: int,
     precision = rcfg.matmul_precision
     is_sp = not is_double_base(op.dtype)
     from .solver import resolve_small_dense, resolve_wide
-    small_dense, qr_backend = resolve_small_dense(
-        rcfg.small_dense_backend, is_sp)
-    # exact-bf16-slice GEMM for the f64 pencil-RR/QR HEMMs (ops/wide) on
-    # emulated-f64 backends — the pseudo arm of the wide-f64 policy
+    small_dense, qr_backend = resolve_small_dense(rcfg.small_dense_backend)
+    # exact-slice GEMM for the f64 pencil-RR/QR HEMMs (ops/wide), opt-in —
+    # the pseudo arm of the wide-f64 policy
     use_wide, small_dense, qr_backend = resolve_wide(
         rcfg, op, is_sp, small_dense, qr_backend)
     # Deviation-form H² refinement eligibility (the BSE DP ladder): DP
@@ -526,17 +526,15 @@ def solve_pseudo(op: DenseOperator, nev: int, nex: int,
     # -- iteration-0 degree cap (kills the structural BSE QR breakdown) --
     # The first H² filter runs before any residuals exist and, on the
     # mixed-precision ladder, in a reduced dtype.  Its amplification ratio
-    # between the wanted edge (μ₁) and the damped interval is ~rho₁^deg:
-    # past ~1e6 the damped directions sink under the reduced filter's
-    # noise floor, every column compresses onto the same dominant
-    # eigendirections, and the S-QR Gram collapses (measured eig_min
-    # ~1e-19·‖G‖ at N=8192 — BENCH_NOTES round 4), forcing an
-    # emulated-f64 TSQR rescue EVERY solve (110 s of the 312 s N=4096 cold
-    # wall).  Capping deg₀ so rho₁^deg₀ ≲ 1e6 keeps the filtered basis
-    # inside shifted-CholQR's range; compression beyond the noise floor
+    # between the wanted edge (μ₁) and the damped interval is ~rho₁^deg: past
+    # ~1e6 the damped directions sink under the reduced filter's noise floor,
+    # every column compresses onto the same dominant eigendirections, and the
+    # S-QR Gram collapses (eig_min ~1e-19·‖G‖ at N=8192), forcing an f64 TSQR
+    # rescue EVERY solve.  Capping deg₀ so rho₁^deg₀ ≲ 1e6 keeps the filtered
+    # basis inside shifted-CholQR's range; compression beyond the noise floor
     # bought nothing anyway (the RR step can only extract what survives
-    # precision).  The reference's fallback is exceptional, not
-    # structural (chase_cpu.hpp:725-751) — this restores that property.
+    # precision).  The reference's fallback is exceptional, not structural
+    # (chase_cpu.hpp:725-751) — this restores that property.
     reduced_iter0 = (refine_capable
                      or (rcfg.mixed_precision and not is_sp)
                      or (rcfg.bf16_filter and is_sp))
@@ -605,7 +603,7 @@ def solve_pseudo(op: DenseOperator, nev: int, nex: int,
         # Mixed-precision ladder (P10) on the BSE path: while the active
         # block is far from converged the H² recurrence takes a reduced-
         # precision H.  f32 problems: the bf16 storage rung — bf16 matmul
-        # inputs, f32 MXU accumulation, carry stays f32
+        # inputs, f32 accumulation, carry stays f32
         # (ops/pseudo._h2_shift).  64-bit problems: the f32/c64 shadow
         # (whole recurrence in the reduced dtype) — the reference's DP→SP
         # filter switch (chase_cpu.hpp:384-447) applied to HEMM_H2.
@@ -624,7 +622,6 @@ def solve_pseudo(op: DenseOperator, nev: int, nex: int,
         if use_refine:
             # deviation-form H² ladder: fast-dtype recurrence seeded by the
             # f64 H²-residuals — no threshold, never hands back to f64 H
-            # (the emulated-f64 endgame the Hermitian path eliminated)
             use_low = use_bf16 = False
             # bf16 transient rebuild on memory-tight large-N wide solves
             # (operator.H_filter); H_low (f32) otherwise
@@ -705,6 +702,7 @@ def solve_pseudo(op: DenseOperator, nev: int, nex: int,
         if perf is not None:
             # H² = 2 matvecs per recurrence step
             perf.add_filtered_vecs(2 * int(np.sum(degrees[act])),
+                                   rung=precision_rung(H_f.dtype, f_precision),
                                    low=use_refine or use_bf16 or use_low,
                                    executed=2 * f_executed)
             perf.add_iter_blocksize(u)
@@ -749,7 +747,7 @@ def solve_pseudo(op: DenseOperator, nev: int, nex: int,
         H_rr = None if use_wide else op.H
         rr_out = ps.rayleigh_ritz_residuals_pseudo(
             H_rr, V, jnp.int32(locked), precision=precision,
-            small_dense=small_dense, polish=rcfg.polish_passes(pseudo=True),
+            small_dense=small_dense, polish=rcfg.polish_passes(),
             want_vectors=refine_capable, H_wide=H_wide_arg)
         if refine_capable:
             V, th_dev, rs_dev, R_prev, ok = rr_out

@@ -1,6 +1,6 @@
 """Dtype traits and type-dependent algorithm defaults.
 
-TPU-native analogue of the reference's ``algorithm/types.hpp`` (Base<T>,
+JAX analogue of the reference's ``algorithm/types.hpp`` (Base<T>,
 SP/DP traits) and the type-dispatched defaults in
 ``algorithm/configuration.hpp:34-129`` (deg/maxDeg/lanczosIter/tol per
 precision).  Instead of C++ template dispatch we key everything off the
@@ -53,9 +53,9 @@ def low_precision_dtype(dtype):
     """The reduced-precision dtype used by the mixed-precision filter.
 
     Reference: DP problems run the filter HEMM in SP while residuals are
-    large (Impl/chase_cpu/chase_cpu.hpp:384-447).  TPU analogue: f64→f32,
-    c128→c64 and additionally f32→bf16 when explicitly requested (the MXU's
-    native input type).
+    large (Impl/chase_cpu/chase_cpu.hpp:384-447).  Here: f64→f32,
+    c128→c64 and additionally f32→bf16 when explicitly requested (the
+    bf16 tensor-core rung).
     """
     dtype = np.dtype(dtype)
     if dtype == np.complex128:
@@ -72,7 +72,7 @@ def filter_carry_dtype(h_dtype, x_dtype):
 
     For the f64→f32 / c128→c64 mixed-precision rung the whole recurrence
     runs in the reduced dtype (the reference's SP filter).  For the bf16
-    *storage* rung (f32 problems, H cast to bf16 for MXU-native inputs)
+    *storage* rung (f32 problems, H cast to bf16 matmul inputs)
     the carry stays in the problem dtype — only the matmul inputs are
     cast down, with f32 accumulation — because a 3-term recurrence carried
     in 8 mantissa bits degrades too fast.
@@ -80,9 +80,9 @@ def filter_carry_dtype(h_dtype, x_dtype):
     if np.dtype(h_dtype) == np.dtype(jnp.bfloat16):
         xd = np.dtype(x_dtype)
         # a bf16-storage operator caps the recurrence fidelity at ~1e-2
-        # relative: a 64-bit carry buys nothing over f32 and costs
-        # emulated-f64 elementwise work + 2x the carry memory (the
-        # transient-shadow filter at N=30000)
+        # relative: a 64-bit carry buys nothing over f32 and costs f64
+        # elementwise work + 2x the carry memory (the transient-shadow
+        # filter)
         if xd == np.dtype(np.float64):
             return np.dtype(np.float32)
         if xd == np.dtype(np.complex128):

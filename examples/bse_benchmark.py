@@ -10,7 +10,10 @@ import time
 import numpy as np
 import chase_tpu
 from chase_tpu import io as cio
+from chase_tpu.device import use_compile_cache
 from chase_tpu.models import random_pseudo_hermitian
+
+use_compile_cache()
 
 p = argparse.ArgumentParser()
 p.add_argument("--n", type=int, default=2000)

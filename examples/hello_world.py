@@ -6,7 +6,10 @@ N=1200 on a distributed layout, idx_max=3 sequence, PerformanceDecorator).
 
 import numpy as np
 import chase_tpu
+from chase_tpu.device import use_compile_cache
 from chase_tpu.models import clement
+
+use_compile_cache()
 
 N, nev, nex = 1200, 100, 40
 H = clement(N)

@@ -3,7 +3,10 @@ the init/solve/get/finalize lifecycle for codes ported from the C ABI."""
 
 import numpy as np
 import chase_tpu.interface as chase
+from chase_tpu.device import use_compile_cache
 from chase_tpu.models import clement
+
+use_compile_cache()
 
 N, nev, nex = 1001, 100, 40
 H = clement(N)

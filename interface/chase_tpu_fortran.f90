@@ -732,12 +732,6 @@ module chase_tpu_interface
             integer(c_int) :: flag
         end subroutine chase_has_mpi
 
-        subroutine chase_has_tpu(flag) &
-            bind(c, name='chase_has_tpu_')
-            use iso_c_binding
-            integer(c_int) :: flag
-        end subroutine chase_has_tpu
-
         subroutine chase_get_version(version, length) &
             bind(c, name='chase_get_version_')
             use iso_c_binding

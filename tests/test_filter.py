@@ -66,7 +66,7 @@ def test_filter_matches_reference_recurrence(dtype):
 
 
 def test_filter_bf16_storage_tracks_f32():
-    """bf16-storage H with f32 carry (the aggressive MXU rung): the filtered
+    """bf16-storage H with f32 carry (the aggressive bf16 rung): the filtered
     basis must stay within bf16-rounding distance of the f32 filter."""
     import jax.numpy as jnp
     from chase_tpu.ops.filter import chebyshev_filter

@@ -3,8 +3,7 @@
 The folded kernels (ops/filter.filter_seg_* / refine_seg_*,
 ops/pseudo.h2_seg_* / refine_h2_seg_steps) fuse window slice + recurrence
 segment + masked write-back + carry shrink into ONE XLA program each to cut
-per-dispatch overhead (the CONFIRMED round-4 in-solve filter bottleneck,
-BENCH_NOTES "width/N probe").  These tests pin them against the unfolded
+per-dispatch overhead.  These tests pin them against the unfolded
 whole-window kernels (chebyshev_filter / chebyshev_filter_refine /
 chebyshev_filter_h2 / chebyshev_filter_refine_h2): identical polynomial,
 identical per-column reduction order, so parity is near-bit-exact on CPU.
@@ -215,7 +214,7 @@ def test_h2_refine_windowed_matches_unfolded(B):
 def test_refine_seg_bf16_carry_matches_unfolded():
     """Folded refine segments with a bf16-storage H (f32 carry) track the
     unfolded refine kernel — the mixed-precision rung goes through the
-    same folded programs on TPU."""
+    same folded programs."""
     from chase_tpu.solver import _filter_refine_windowed, _window_pad
 
     rng = np.random.default_rng(23)

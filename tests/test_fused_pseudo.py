@@ -94,7 +94,7 @@ def test_fused_pseudo_refine_ladder_dp():
     filter FLOPs stay in f32 (deviation recurrence seeded by f64
     H²-residuals) while true residuals reach the DP tolerance — mirrors
     test_fused.test_fused_refine_ladder_dp for the BSE serving path
-    (VERDICT round 3 item 4; reference runtime-tolerance serving parity,
+    (reference runtime-tolerance serving parity,
     chase_c_interface.h:159-175)."""
     N, nev, nex = 192, 16, 12
     H = random_pseudo_hermitian(N, dtype=np.float64, seed=29)

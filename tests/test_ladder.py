@@ -6,10 +6,10 @@ residuals drop below 1e-3 (Impl/chase_cpu/chase_cpu.hpp:384-447).  chase_tpu
 instead keeps the filter in the fast dtype forever via the deviation-form
 refinement (ops/filter.chebyshev_filter_refine): these tests assert the
 1e-10 convergence AND that the bulk (>=80%) of the solve's FLOPs stayed in
-reduced precision — the TPU north-star requirement (BASELINE.md).
+reduced precision — the mixed-precision requirement of BASELINE.md.
 
-Also regression-tests ops/rr.eigh_polished: XLA's native symmetric
-eigensolver returns eigenvectors with ~1e-6 relative residual, which made
+Also regression-tests ops/rr.eigh_polished: an iterative symmetric
+eigensolver can return eigenvectors with ~1e-6 relative residual, which made
 tight-tolerance solves plateau and bounce before round 2.
 """
 
@@ -134,21 +134,15 @@ def test_eigh_polished_degenerate_cluster_safe():
     assert o < 1e-10
 
 
-def test_transient_shadow_bf16_filter_reaches_1e10(monkeypatch):
-    """Memory-tight wide mode (transient shadow): the f32 shadow is
-    rebuilt from the slice stack for Lanczos and dropped, the filter
-    runs on a bf16 reconstruction, and the DP ladder still reaches
-    1e-10 — the N=30000 single-chip configuration, exercised on CPU by
-    shrinking the reported device memory."""
-    from chase_tpu import solver as _solver
+def _transient_wide_op(monkeypatch, H):
+    """DenseOperator in memory-tight wide mode: int8 slice stack, no f64
+    buffer, and a bf16 filter shadow rebuilt from the slices."""
+    from chase_tpu import device
     from chase_tpu.parallel.operator import DenseOperator
 
-    # force the transient policy: (L+4)*N^2 > 0.6 * "device memory"
-    monkeypatch.setattr(_solver, "_device_memory_bytes", lambda: 1.0)
+    # force the transient policy: (L+4)*N^2 > 0.6 * the device memory
+    monkeypatch.setattr(device, "memory_bytes", lambda: 1.0)
     # force the chunked host-slicing path (normally > 1 GB operators)
-    N, nev, nex = 384, 24, 12
-    H = clement(N)
-    cfg = chase_tpu.ChaseConfig(mixed_precision=True, wide_f64="on")
     op = DenseOperator(H)
     op._H_src = np.asarray(H)          # chunked path needs a host source
 
@@ -159,7 +153,45 @@ def test_transient_shadow_bf16_filter_reaches_1e10(monkeypatch):
     op._H_wide = (slices, sa, s, L)
     op._shadow_transient = True
     op._H_dev = None
+    return op
 
+
+@pytest.mark.parametrize("case", ["f32_mixed", "f64_wide_transient"])
+def test_filter_records_the_rung_it_ran_in(monkeypatch, case):
+    """PerfData names the rung each filter call really ran in, from the
+    operator it used and its precision=, not from the problem dtype: the
+    f32 ladder's low phase is TF32 (precision='high' on the f32 H), and a
+    transient-shadow wide DP solve filters on the bf16 rebuild."""
+    N, nev, nex = 256, 16, 16
+    if case == "f32_mixed":
+        H = clement(N).astype(np.float32)
+        cfg = chase_tpu.ChaseConfig(mixed_precision=True)
+        want = {"tf32", "fp32"}
+        tol = 1e-4
+    else:
+        H = clement(N)
+        cfg = chase_tpu.ChaseConfig(mixed_precision=True, wide_f64="on")
+        H = _transient_wide_op(monkeypatch, H)
+        want = {"bf16"}
+        tol = 1e-8
+    res = chase_tpu.eigsh(H, nev, nex, tol=tol, config=cfg,
+                          collect_perf=True)
+    assert res.converged
+    by_rung = res.perf.filtered_vecs_by_rung
+    assert set(by_rung) == want, by_rung
+    assert sum(by_rung.values()) == res.perf.filtered_vecs
+
+
+def test_transient_shadow_bf16_filter_reaches_1e10(monkeypatch):
+    """Memory-tight wide mode (transient shadow): the f32 shadow is
+    rebuilt from the slice stack for Lanczos and dropped, the filter
+    runs on a bf16 reconstruction, and the DP ladder still reaches
+    1e-10 — the N=30000 single-chip configuration, exercised on CPU by
+    shrinking the reported device memory."""
+    N, nev, nex = 384, 24, 12
+    H = clement(N)
+    cfg = chase_tpu.ChaseConfig(mixed_precision=True, wide_f64="on")
+    op = _transient_wide_op(monkeypatch, H)
     assert op.H_filter.dtype == jnp.bfloat16
     res = chase_tpu.eigsh(op, nev, nex, tol=1e-10, config=cfg)
     assert res.converged, res.iterations

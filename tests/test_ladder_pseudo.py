@@ -178,9 +178,8 @@ def test_iter0_degree_cap_math():
 def test_pseudo_ladder_iter0_cap_avoids_qr_rescue():
     """With the cap, the DP BSE ladder's first S-QR must survive on the
     CholQR chain (no TSQR/full-block rescue warning) and still converge
-    to 1e-10 — VERDICT r4 missing #4 (the structural iteration-0
-    breakdown).  A wide-gap spectrum maximizes rho1, the breakdown
-    regime."""
+    to 1e-10 (the structural iteration-0 breakdown).  A wide-gap
+    spectrum maximizes rho1, the breakdown regime."""
     from chase_tpu.logger import get_logger
 
     N, nev, nex = 256, 16, 8

@@ -112,7 +112,7 @@ def test_block_cyclic_vector_1d_roundtrip_and_warm_start():
 
 
 def test_pseudo_pad_to_grid_tile():
-    """S-preserving pad (VERDICT round 3 item 8): a BSE problem whose half
+    """S-preserving pad: a BSE problem whose half
     size does not divide the mesh tile pads each half independently with
     decoupled ±g phantom pairs (displaced outside the wanted window) —
     spectra identical to the unsharded solve, eigenvectors returned at the

@@ -185,7 +185,7 @@ print(json.dumps({"pid": pid, "ok": True, "eig_err": float(err)}))
 
 @pytest.mark.slow
 def test_per_rank_init_dist_local(tmp_path):
-    """VERDICT round 3 item 7: a genuinely distributed caller — one
+    """A genuinely distributed caller — one
     process per rank passing its LOCAL (m, n) block — solves and gets
     rank-local eigenvector blocks back (p*chase_init_ semantics)."""
     nproc = 2
@@ -222,7 +222,7 @@ def test_per_rank_init_dist_local(tmp_path):
 def test_per_rank_c_driver_2proc(tmp_path):
     """A compiled C caller on 2 processes: each passes its local block to
     pdchase_init_ and reads back rank-local eigenvector rows — the
-    reference's MPI application pattern (FLEUR/YAMBO) on the TPU runtime."""
+    reference's MPI application pattern (FLEUR/YAMBO) on the JAX runtime."""
     import shutil
     if shutil.which("g++") is None or shutil.which("cc") is None:
         pytest.skip("no C compiler")

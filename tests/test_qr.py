@@ -83,7 +83,7 @@ def test_householder_qr(dtype):
 def test_tsqr_distributed_matches_householder(dtype):
     """Distributed TSQR on the 8-device mesh: orthonormal and span-preserving.
 
-    TPU analogue of the reference's distributed Householder QR tests
+    JAX analogue of the reference's distributed Householder QR tests
     (tests/linalg/internal/mpi/householder_qr.cpp on 4 MPI ranks)."""
     grid = make_grid()  # 8 virtual devices
     p = grid.shape["r"]
@@ -170,7 +170,7 @@ def test_orthonormalize_falls_back_to_householder():
 
 
 def test_cholqr_hostchol_matches_device():
-    """Host-factorized CholQR (split-sync potrf+trtri on host, MXU apply)
+    """Host-factorized CholQR (split-sync potrf+trtri on host, device apply)
     must orthonormalize as well as the device path."""
     from chase_tpu.ops.qr import cholqr_hostchol
     for dtype in [np.float64, np.complex128]:

@@ -120,16 +120,18 @@ def test_real_pair_warm_sequence():
     assert r2.iterations <= r1.iterations
 
 
-def test_auto_policy_on_cpu_stays_native(monkeypatch):
-    """complex_backend='auto' must NOT engage the embedding on CPU."""
+@pytest.mark.parametrize("platform", ["cpu", "gpu"])
+def test_auto_policy_on_cpu_stays_native(monkeypatch, platform):
+    """complex_backend='auto' keeps complex dtypes native on every
+    supported platform; only an explicit 'real_pair' embeds."""
+    import jax
     from chase_tpu.api import _use_real_pair
+    monkeypatch.setattr(jax, "default_backend", lambda: platform)
     H = np.eye(8, dtype=np.complex128)
     assert not _use_real_pair(H, ChaseConfig())
-    import jax
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
-    assert _use_real_pair(H, ChaseConfig())
-    assert not _use_real_pair(H.real, ChaseConfig())
     assert not _use_real_pair(H, ChaseConfig(complex_backend="native"))
+    assert _use_real_pair(H, ChaseConfig(complex_backend="real_pair"))
+    assert not _use_real_pair(H.real, ChaseConfig(complex_backend="real_pair"))
 
 
 # ---------------------------------------------------------------------------
@@ -311,7 +313,7 @@ def test_embed_complex_operator_pseudo_reuse():
 @pytest.mark.quick
 def test_raw_complex_embed_cache():
     """A second eigsh/eigsh_pseudo call with the SAME raw complex H object
-    must reuse the cached embedding (the BENCH_NOTES round-4 24× footgun);
+    must reuse the cached embedding (no re-embedding per call);
     mutating H in place must invalidate it."""
     import dataclasses
     from chase_tpu import api as _api

@@ -1,6 +1,5 @@
 """Ring collective matmul tests (P11 compute/comm overlap) — the
-shard_map/ppermute version on the full 8-device mesh, and the Pallas RDMA
-kernel in the TPU interpreter on a small ring."""
+shard_map/ppermute rings on the 8-device virtual mesh."""
 
 import numpy as np
 import pytest
@@ -34,45 +33,6 @@ def test_ring_hemm_complex():
     Vs = jax.device_put(V, grid.sharding("r", None))
     W = ring_hemm(grid, Hs, Vs)
     np.testing.assert_allclose(np.asarray(W), H @ V, rtol=1e-10, atol=1e-10)
-
-
-@pytest.mark.slow
-def test_pallas_ring_hemm_interpret():
-    """Pallas RDMA double-buffered ring in the TPU interpreter (slow)."""
-    from jax.experimental.pallas import tpu as pltpu
-    import chase_tpu.ops.pallas_ring as pr
-
-    # route interpret=True through the TPU interpreter, which models the
-    # cross-device DMA semantics
-    orig = pr.pl.pallas_call
-
-    def patched(*a, **kw):
-        if kw.get("interpret") is True:
-            kw["interpret"] = pltpu.InterpretParams()
-        return orig(*a, **kw)
-
-    pr.pl.pallas_call = patched
-    try:
-        grid = chase_tpu.make_grid(jax.devices()[:4], shape=(4, 1))
-        N, k = 128, 32
-        H = np.random.default_rng(0).standard_normal((N, N)).astype(np.float32)
-        V = np.random.default_rng(1).standard_normal((N, k)).astype(np.float32)
-        Hs = jax.device_put(H, grid.sharding("r", None))
-        Vs = jax.device_put(V, grid.sharding("r", None))
-        W = pr.pallas_ring_hemm(grid, Hs, Vs, interpret=True)
-        ref = H @ V
-        rel = np.abs(np.asarray(W) - ref).max() / np.abs(ref).max()
-        assert rel < 1e-5
-    finally:
-        pr.pl.pallas_call = orig
-
-
-def test_pallas_ring_rejects_2d_mesh():
-    from chase_tpu.ops.pallas_ring import pallas_ring_hemm
-    grid = chase_tpu.make_grid(jax.devices(), shape=(2, 4))
-    with pytest.raises(ValueError):
-        pallas_ring_hemm(grid, np.zeros((8, 8), np.float32),
-                         np.zeros((8, 4), np.float32))
 
 
 def test_ring_integrated_filter_matches_dense():
@@ -353,7 +313,7 @@ def test_ring_mode_selection():
 def test_refine_ring_matches_flat_refine(shape):
     """chebyshev_filter_refine_ring(2d) must apply the identical deviation
     polynomial as ops.filter.chebyshev_filter_refine (ring x refine
-    composition, VERDICT round-2 item 5)."""
+    composition)."""
     import chase_tpu
     from chase_tpu.ops import filter as filt
     from chase_tpu.parallel.ring import (chebyshev_filter_refine_ring,
@@ -410,7 +370,7 @@ def test_solver_refine_ring_dp_e2e():
 
 def test_ring_auto_on_and_opt_out():
     """ring_filter=None (default) auto-engages on eligible grids; False
-    opts out; spectra identical either way (VERDICT round-2 item 9)."""
+    opts out; spectra identical either way."""
     import chase_tpu
     from chase_tpu.models import clement, clement_eigenvalues
 
@@ -490,67 +450,6 @@ def test_pseudo_solver_ring_e2e():
     full = np.sort(np.linalg.eigvals(H).real)
     pos = full[full > 0][:nev]
     np.testing.assert_allclose(np.asarray(res.ritzv), pos, atol=1e-7)
-
-
-def test_pallas_ring_filter_parity():
-    """chebyshev_filter_ring_pallas (the config-wired RDMA ring filter)
-    matches the flat filter in the TPU interpreter, including degree-0
-    column passthrough."""
-    from chase_tpu.parallel.ring import chebyshev_filter_ring_pallas
-    from chase_tpu.ops.filter import chebyshev_filter
-    from chase_tpu.models import clement
-
-    grid = chase_tpu.make_grid(jax.devices()[:4], shape=(4, 1))
-    N, k = 128, 16
-    H = np.asarray(clement(N), np.float32)
-    rng = np.random.default_rng(3)
-    X = rng.standard_normal((N, k)).astype(np.float32)
-    degs = np.full(k, 4, np.int32)
-    degs[::5] = 0                    # retired columns stay bit-exact
-    lam1, lo, up = -float(N), -float(N) * 0.8, float(N)
-    Hs = jax.device_put(H, grid.sharding("r", None))
-    Xs = jax.device_put(X, grid.sharding("r", None))
-    Y = chebyshev_filter_ring_pallas(grid, Hs, Xs, jnp.asarray(degs),
-                                     lam1, lo, up, 4)
-    Yref = chebyshev_filter(jnp.asarray(H), jnp.asarray(X),
-                            jnp.asarray(degs), lam1, lo, up, 4)
-    np.testing.assert_allclose(np.asarray(Y), np.asarray(Yref),
-                               rtol=2e-4, atol=2e-4)
-    np.testing.assert_array_equal(np.asarray(Y)[:, ::5], X[:, ::5])
-
-
-def test_pallas_ring_backend_dispatch(monkeypatch):
-    """ring_backend='pallas' routes the solver's ring filter through the
-    Pallas variant on eligible (1D, same-dtype) grids, and falls back to
-    the XLA ring otherwise.  The Pallas call itself delegates to the XLA
-    ring here (the interpreted kernel is too slow for an e2e solve in CI;
-    kernel semantics are covered by the parity test above)."""
-    import chase_tpu.parallel.ring as ring
-    import chase_tpu.solver  # noqa: F401  (dispatcher imports from ring)
-    from chase_tpu.models import clement, clement_eigenvalues
-
-    calls = []
-
-    def spy(grid, H, X, degrees, lam1, lower, upper, deg_max, **kw):
-        calls.append(H.dtype)
-        return ring.chebyshev_filter_ring(grid, H, X, degrees, lam1,
-                                          lower, upper, deg_max)
-
-    monkeypatch.setattr(ring, "chebyshev_filter_ring_pallas", spy)
-    grid8 = chase_tpu.make_grid(jax.devices(), shape=(8, 1))
-    cfg = chase_tpu.ChaseConfig(ring_backend="pallas")
-    res = chase_tpu.eigsh(np.asarray(clement(512), np.float32), 10, 10,
-                          tol=1e-3, config=cfg, grid=grid8)
-    assert res.converged and len(calls) > 0
-    np.testing.assert_allclose(res.ritzv, clement_eigenvalues(512)[:10],
-                               atol=1e-1)
-
-    # ineligible: 2D mesh falls back (warns, still converges)
-    calls.clear()
-    grid2d = chase_tpu.make_grid(jax.devices(), shape=(2, 4))
-    res2 = chase_tpu.eigsh(np.asarray(clement(512), np.float32), 10, 10,
-                           tol=1e-3, config=cfg, grid=grid2d)
-    assert res2.converged and len(calls) == 0
 
 
 @pytest.mark.parametrize("shape", [(8, 1), (4, 2)], ids=["1d", "2d"])
